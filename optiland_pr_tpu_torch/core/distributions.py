@@ -2,14 +2,15 @@
 
 The samples are made with numpy on the host, exactly as the JAX package makes
 them, so both packages trace bit-identical pupils; only the final conversion
-differs (a tensor on ``device`` instead of a jax array).
+differs (a tensor on ``device`` instead of a jax array). Without a
+``device`` the tensors go to the card (``config.default_device()``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import default_float
+from ..config import default_float, resolve_device
 
 __all__ = ["generate_distribution", "gaussian_quad_weights", "DISTRIBUTIONS"]
 
@@ -103,7 +104,8 @@ def gaussian_quad_weights(num_rings, is_symmetric=False, dtype=None,
         raise ValueError("Gaussian quadrature must have between 1 and 6 rings.")
     w = np.asarray(_GQ_WEIGHTS[num_rings])
     w = w * 6.0 if is_symmetric else w * 2.0
-    return torch.as_tensor(w, dtype=dtype or default_float(), device=device)
+    return torch.as_tensor(w, dtype=dtype or default_float(),
+                           device=resolve_device(device))
 
 
 DISTRIBUTIONS = {
@@ -122,10 +124,12 @@ DISTRIBUTIONS = {
 
 def generate_distribution(kind: str, num_points: int, dtype=None, device=None,
                           **kw):
-    """Return (Px, Py) tensors of normalized pupil coordinates."""
+    """Return (Px, Py) tensors of normalized pupil coordinates on
+    ``device`` (default: the card)."""
     if kind not in DISTRIBUTIONS:
         raise ValueError(f"Invalid distribution type: {kind!r}")
     x, y = DISTRIBUTIONS[kind](num_points, **kw)
     dt = dtype or default_float()
-    return (torch.as_tensor(x, dtype=dt, device=device),
-            torch.as_tensor(y, dtype=dt, device=device))
+    dev = resolve_device(device)
+    return (torch.as_tensor(x, dtype=dt, device=dev),
+            torch.as_tensor(y, dtype=dt, device=dev))

@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from ..config import default_float
+from ..config import default_device, default_float
 
 __all__ = ["Rays", "new_rays", "propagate", "refract", "reflect", "clip",
            "align_normal"]
@@ -38,8 +38,14 @@ class Rays:
 
 def new_rays(x, y, z, L, M, N, intensity=1.0, wavelength=0.55, opd=None,
              dtype=None, device=None) -> Rays:
-    """Build a ray bundle, broadcasting scalars to the common shape."""
+    """Build a ray bundle, broadcasting scalars to the common shape. Without
+    a ``device`` the bundle lies where its tensor inputs lie, or on the card
+    (``config.default_device()``) when all of them are Python numbers."""
     dtype = dtype or default_float()
+    if device is None:
+        device = next((a.device for a in (x, y, z, L, M, N, intensity,
+                                          wavelength, opd)
+                       if isinstance(a, torch.Tensor)), default_device())
     arrs = [torch.as_tensor(a, dtype=dtype, device=device)
             for a in (x, y, z, L, M, N, intensity, wavelength)]
     shape = torch.broadcast_shapes(*[a.shape for a in arrs])

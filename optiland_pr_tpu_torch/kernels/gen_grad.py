@@ -1,0 +1,131 @@
+"""K2 in the port: the backward of K1, sub-slice (a) (counterpart of
+``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
+``diff_gen_trace`` custom_vjp).
+
+The module holds
+- ``gen_trace_bwd_plain``: the plain version. It recomputes
+  ``gen_trace_plain`` under autograd and returns ``torch.autograd.grad`` for
+  the given cotangents;
+- ``gen_trace_bwd_cuda``: the wrapper of the hand-written CUDA kernel
+  ``csrc/gen_grad.cu``, built with nvcc at first use and bound with ctypes;
+- ``GenTrace``: the ``torch.autograd.Function`` over K1. Its forward is K1
+  (the CUDA kernel on CUDA tensors, the plain version on CPU tensors), its
+  backward K2 on the same device. A CUDA tensor never falls back to a plain
+  version.
+
+Gradient semantics are those of the JAX custom_vjp: the cotangents of lost
+rays' x, y, z, L, M, N and OPD are zeroed by the transpose of the final NaN
+step (a NaN cotangent from an unmasked consumer becomes 0); the intensity is
+never masked, so its cotangent flows through lost rays too.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .gen_trace import (CONST_W, GEN_W, MAX_SURFACES, _flag_words,
+                        build_kernel, gen_trace_cuda, gen_trace_plain)
+
+__all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
+
+
+def gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot, flags,
+                        final_prop: bool):
+    """(dgen [F, 16], dconsts [W, S, 32], dacoef [S, C], dPx [n], dPy [n])
+    for the cotangents ``cot`` [8, W, F, n] of K1's outputs, by autograd
+    through the plain version."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (gen, consts, Px, Py)]
+        g, c, px, py = leaves
+        out = gen_trace_plain(g, c, acoef, px, py, flags, final_prop)
+        dgen, dconsts, dpx, dpy = torch.autograd.grad(out, leaves, cot)
+    return dgen, dconsts, torch.zeros_like(acoef), dpx, dpy
+
+
+def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
+                       final_prop: bool, pupil_grad: bool = True):
+    """Launch the CUDA K2 on the current stream; returns what
+    ``gen_trace_bwd_plain`` returns, with dPx/dPy None unless
+    ``pupil_grad``. Raises on anything the kernel does not take."""
+    dev = Px.device
+    for name, t in (("gen", gen), ("consts", consts), ("acoef", acoef),
+                    ("Px", Px), ("Py", Py), ("cot", cot)):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+    W, S = consts.shape[0], consts.shape[1]
+    F, n = gen.shape[0], Px.shape[0]
+    if (consts.shape[2] != CONST_W or gen.shape[1] != GEN_W
+            or Px.shape != Py.shape or Px.ndim != 1 or acoef.ndim != 2
+            or acoef.shape[0] != S or tuple(cot.shape) != (8, W, F, n)):
+        raise ValueError("bad table shapes: gen [F, 16], consts [W, S, 32], "
+                         "acoef [S, C], Px/Py [n], cot [8, W, F, n]")
+    if len(flags) != S or not 1 <= S <= MAX_SURFACES:
+        raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
+                         f"each, got {S} surfaces and {len(flags)} flags")
+    if not (1 <= F <= 65535 and 1 <= W <= 65535 and n >= 1):
+        raise ValueError("F and W must be in 1..65535 and n >= 1")
+    lib = build_kernel("gen_grad")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    part = empty(lib.gen_grad_partials_size(S, F, W, n))
+    dgen, dconsts, dacoef = empty(F, GEN_W), empty(W, S, CONST_W), \
+        empty(*acoef.shape)
+    if pupil_grad:
+        dpx_wf, dpy_wf, dpx, dpy = empty(W, F, n), empty(W, F, n), \
+            empty(n), empty(n)
+        ptrs = [t.data_ptr() for t in (dpx_wf, dpy_wf)]
+        outs = [t.data_ptr() for t in (dpx, dpy)]
+    else:
+        dpx = dpy = None
+        ptrs = outs = [None, None]
+    words = (ctypes.c_int32 * S)(*_flag_words(flags))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.gen_grad_launch(
+            gen.data_ptr(), consts.data_ptr(), Px.data_ptr(), Py.data_ptr(),
+            cot.data_ptr(), part.data_ptr(), *ptrs, dgen.data_ptr(),
+            dconsts.data_ptr(), dacoef.data_ptr(), *outs,
+            ctypes.addressof(words), S, F, W, n, acoef.shape[1],
+            int(bool(final_prop)), stream)
+    if err != 0:
+        raise RuntimeError(f"gen_grad kernel launch failed: CUDA error {err}")
+    gen_trace_bwd_cuda.launches += 1
+    return dgen, dconsts, dacoef, dpx, dpy
+
+
+gen_trace_bwd_cuda.launches = 0
+
+
+class GenTrace(torch.autograd.Function):
+    """K1 with K2 as its backward: ``GenTrace.apply(gen, consts, acoef, Px,
+    Py, flags, final_prop)`` returns K1's [8, W, F, n] outputs."""
+
+    @staticmethod
+    def forward(ctx, gen, consts, acoef, Px, Py, flags, final_prop):
+        ctx.save_for_backward(gen, consts, acoef, Px, Py)
+        ctx.flags = flags
+        ctx.final_prop = final_prop
+        if Px.device.type == "cuda":
+            return gen_trace_cuda(gen, consts, acoef, Px, Py, flags,
+                                  final_prop)
+        return gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop)
+
+    @staticmethod
+    def backward(ctx, cot):
+        gen, consts, acoef, Px, Py = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        cot = cot.contiguous()
+        if cot.device.type == "cuda":
+            grads = gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot,
+                                       ctx.flags, ctx.final_prop,
+                                       pupil_grad=need[3] or need[4])
+        else:
+            grads = gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot,
+                                        ctx.flags, ctx.final_prop)
+        return tuple(g if need[i] else None
+                     for i, g in enumerate(grads)) + (None, None)

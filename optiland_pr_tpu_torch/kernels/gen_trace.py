@@ -11,9 +11,12 @@ The module holds
   tables, in the kernel's operation order;
 - ``gen_trace_cuda``: the wrapper of the hand-written CUDA kernel
   ``csrc/gen_trace.cu``, built with nvcc at first use and bound with ctypes;
+- ``build_kernel``/``build_kernels``: the nvcc build of the port's CUDA
+  sources (K1 here, K2 in ``gen_grad.py``);
 - ``gen_trace_conic``, the counterpart of ``pallas_gen_trace_conic``: a CPU
   tensor takes the plain version, a CUDA tensor the kernel, and nothing
-  falls back.
+  falls back. Inputs that require grad go through ``gen_grad.GenTrace``,
+  whose backward is K2.
 
 Outputs are [8, W, F, n] float32 (x, y, z, L, M, N, intensity, opd) in
 (wavelength, field, pupil) order.
@@ -27,6 +30,7 @@ import math
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -38,7 +42,7 @@ from ..system.model import OpticModel, positions_from_params
 __all__ = ["supports_model", "gen_eligible", "model_flags",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
            "gen_trace_plain", "gen_trace_cuda", "gen_trace_conic",
-           "build_kernel"]
+           "build_kernel", "build_kernels", "BUILD_LOG"]
 
 CONST_W = 32       # per-surface constant row width
 GEN_W = 16         # per-field launch row width
@@ -47,7 +51,7 @@ _EPS = 1e-14
 
 FLAG_PLANE, FLAG_REFL, FLAG_ABSORB = 1, 2, 4
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "gen_trace.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
@@ -346,36 +350,70 @@ def _find_nvcc() -> str:
         if c and Path(c).is_file():
             return c
     raise RuntimeError(
-        "nvcc not found: the K1 kernel (kernels/csrc/gen_trace.cu) is built "
+        "nvcc not found: the CUDA kernels (kernels/csrc/*.cu) are built "
         "from source at first use. Install the CUDA toolkit, or put nvcc on "
         "PATH or under CUDA_HOME/bin.")
 
 
-@functools.lru_cache(maxsize=1)
-def build_kernel():
-    """Compile ``csrc/gen_trace.cu`` for sm_90a into a shared library under
-    ``kernels/_build/`` (keyed by a hash of the source), load it with ctypes
-    and declare its signature."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"gen_trace_{key}.so"
+# each library's C entry points: (name, argument types, result type)
+_SIGNATURES = {
+    "gen_trace": [
+        ("gen_trace_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)],
+    "gen_grad": [
+        ("gen_grad_partials_size", [ctypes.c_int] * 3 + [ctypes.c_longlong],
+         ctypes.c_longlong),
+        ("gen_grad_launch", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int)],
+}
+
+# what ptxas said about each library built in this process (-Xptxas -v:
+# registers, spills, shared memory per kernel)
+BUILD_LOG: dict = {}
+
+
+def _sources_key() -> str:
+    """Hash of every file under csrc/ (a header change rebuilds both)."""
+    h = hashlib.sha256()
+    for path in sorted(_CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def build_kernel(name: str):
+    """Compile ``csrc/<name>.cu`` for sm_90a into a shared library under
+    ``kernels/_build/`` (keyed by a hash of every source), load it with
+    ctypes and declare its signatures."""
+    src = _CSRC / f"{name}.cu"
+    lib_path = _BUILD_DIR / f"{name}_{_sources_key()}.so"
     if not lib_path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SRC)]
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
+               "-fPIC", "-o", str(tmp), str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stderr}")
+        BUILD_LOG[name] = res.stderr
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    fn = lib.gen_trace_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes, restype in _SIGNATURES[name]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
+
+
+def build_kernels() -> dict:
+    """Build every library at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(_SIGNATURES)) as pool:
+        return dict(zip(_SIGNATURES, pool.map(build_kernel, _SIGNATURES)))
 
 
 def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
@@ -402,7 +440,7 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
     out = torch.empty((8, W, F, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    lib = build_kernel()
+    lib = build_kernel("gen_trace")
     words = (ctypes.c_int32 * S)(*_flag_words(flags))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -428,6 +466,12 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     K1 runs on the device of ``Px``: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors, with no fallback between the two.
 
+    Gradients: when the tables or the pupil samples require grad, the call
+    goes through ``gen_grad.GenTrace``, whose backward is K2 on the same
+    device (the CUDA kernel, or on CPU tensors its plain version); the
+    cotangents then flow on through the packing into the parameters by
+    ordinary autograd.
+
     A scalar wavelength and scalar field return ``n`` rays; a field vector
     F*n rays (field-major); a wavelength vector W*F*n rays in (wavelength,
     field, pupil) order. Outputs are float32."""
@@ -439,13 +483,11 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
         raise ValueError(f"K1 has no version for device {px.device}")
     flags = model_flags(model, params)
     gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy)
-    if px.device.type == "cpu":
+    if any(t.requires_grad for t in (gen, consts, px, py)):
+        from .gen_grad import GenTrace
+        out = GenTrace.apply(gen, consts, acoef, px, py, flags, final_prop)
+    elif px.device.type == "cpu":
         out = gen_trace_plain(gen, consts, acoef, px, py, flags, final_prop)
-    elif any(t.requires_grad for t in (gen, consts, px, py)):
-        raise NotImplementedError(
-            "gradients through K1 on the card need the backward kernel K2 "
-            "(optiland_pr_tpu/kernels/pallas_grad.py::_pallas_gen_bwd_2d), "
-            "which is not ported yet; use engine='eager'")
     else:
         out = gen_trace_cuda(gen, consts, acoef, px, py, flags, final_prop)
     field_vec = ndim(Hx) == 1 or ndim(Hy) == 1

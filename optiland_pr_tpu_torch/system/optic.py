@@ -10,9 +10,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
-import torch
 
-from ..config import default_float
+from ..config import default_float, resolve_device
 from ..core.distributions import generate_distribution
 from ..geometry import Plane, StandardGeometry
 from ..materials import resolve_material
@@ -42,7 +41,7 @@ class Optic:
         lens.set_field_type(field_type="angle")
         lens.add_field(y=14)
         lens.add_wavelength(value=0.55, is_primary=True)
-        model, params = lens.build(device="cuda", dtype=torch.float32)
+        model, params = lens.build(dtype=torch.float32)   # on the card
     """
 
     def __init__(self, name: str | None = None):
@@ -110,9 +109,11 @@ class Optic:
     # ------------------------------------------------------------------
     def build(self, device=None, dtype=None):
         """Compile to (OpticModel, params) with every parameter a tensor of
-        ``dtype`` (default float64) on ``device`` (default CPU)."""
+        ``dtype`` (default float64) on ``device`` (default: the card,
+        ``config.default_device()``; pass ``device="cpu"`` for the CPU)."""
         dtype = dtype or default_float()
-        key = (str(torch.device(device or "cpu")), dtype)
+        device = resolve_device(device)
+        key = self.cache_key(device, dtype)
         if key in self._cache:
             return self._cache[key]
         if len(self._surfaces) < 2:
@@ -177,6 +178,11 @@ class Optic:
         self._cache[key] = (model, params_from_numpy(host, device, dtype))
         return self._cache[key]
 
+    @staticmethod
+    def cache_key(device, dtype) -> tuple:
+        """The key of ``build``'s cache for a (device, dtype) pair."""
+        return (str(resolve_device(device)), dtype or default_float())
+
     @property
     def model(self) -> OpticModel:
         return self.build()[0]
@@ -200,8 +206,9 @@ class Optic:
               distribution: str = "hexapolar", engine: str = "auto",
               device=None, dtype=None):
         """Trace a pupil distribution at one field point and wavelength to
-        the image. ``engine``: "auto" (K1 on a CUDA device when eligible,
-        else eager), "eager" or "kernel" (raise if ineligible)."""
+        the image on ``device`` (default: the card). ``engine``: "auto" (K1
+        on a CUDA device when eligible, else eager), "eager" or "kernel"
+        (raise if ineligible)."""
         from ..trace.engine import final_rays
         model, params = self.build(device, dtype)
         wavelength = wavelength or self.primary_wavelength

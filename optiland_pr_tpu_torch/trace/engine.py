@@ -3,7 +3,9 @@
 
 Every spot, operand and analysis call asks ``final_rays`` for the final ray
 state. On a CUDA device, ``"auto"`` sends every eligible call to the K1 kernel
-(``kernels/gen_trace.py``); everything else runs the eager trace
+(``kernels/gen_trace.py``), whose gradient is the K2 kernel
+(``kernels/gen_grad.py``): a merit's gradient through such a call runs K2 on
+the card, never the eager trace. Everything else runs the eager trace
 (``trace/real.py``), which works on any device and is differentiable by
 autograd. The JAX package's ``_PALLAS_MIN_RAYS`` crossover was measured on a
 TPU and is not carried over.

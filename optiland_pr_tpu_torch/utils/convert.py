@@ -11,12 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
 
 def params_from_numpy(tree, device=None, dtype=torch.float64):
-    """Same nested dict/list structure, every leaf a tensor on ``device``;
-    floating leaves take ``dtype``, integer and boolean leaves keep theirs."""
+    """Same nested dict/list structure, every leaf a tensor on ``device``
+    (default: the card); floating leaves take ``dtype``, integer and boolean
+    leaves keep theirs."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -39,7 +39,8 @@ def _t(a):
     ("gaussian_quad", 4)])
 def test_distributions_bit_equal(kind, n):
     jx, jy = jdist.generate_distribution(kind, n)
-    tx, ty = tdist.generate_distribution(kind, n, dtype=F64)
+    tx, ty = tdist.generate_distribution(kind, n, dtype=F64,
+                                    device="cpu")
     assert np.array_equal(np.asarray(jx), tx.numpy())
     assert np.array_equal(np.asarray(jy), ty.numpy())
 
@@ -47,7 +48,8 @@ def test_distributions_bit_equal(kind, n):
 @pytest.mark.parametrize("rings,sym", [(3, False), (6, True)])
 def test_gaussian_quad_weights_bit_equal(rings, sym):
     assert np.array_equal(np.asarray(jdist.gaussian_quad_weights(rings, sym)),
-                          tdist.gaussian_quad_weights(rings, sym).numpy())
+                          tdist.gaussian_quad_weights(rings, sym,
+                                                     device="cpu").numpy())
 
 
 _GLASSES = [("SK16", None), ("F2", "schott"), ("N-SSK2", None),
@@ -60,7 +62,7 @@ def test_refractive_index_matches_jax(name, ref):
     jm, jp = jcat.glass(name, ref)
     tm, tp = tcat.glass(name, ref)
     assert type(jm).__name__ == type(tm).__name__
-    tp = params_from_numpy(tp, dtype=F64)
+    tp = params_from_numpy(tp, device="cpu", dtype=F64)
     wls = np.array([0.4, 0.4861, 0.55, 0.5876, 0.6563, 0.8])
     n_j = np.asarray(jm.n(jp, jnp.asarray(wls)))
     n_t = tm.n(tp, _t(wls)).numpy()
@@ -78,7 +80,7 @@ def test_thermal_index_matches_jax():
     jm, jp = jcat.glass("N-SSK2")
     tm, tp = tcat.glass("N-SSK2")
     assert tm.has_thermal
-    tp = params_from_numpy(tp, dtype=F64)
+    tp = params_from_numpy(tp, device="cpu", dtype=F64)
     w = np.array([0.45, 0.6])
     np.testing.assert_allclose(
         tm.n(tp, _t(w), temperature=40.0, pressure=0.9).numpy(),
@@ -125,7 +127,7 @@ def test_catalog_resolution_matches_jax():
         tm, tp = tcat.resolve_material(spec)
         jm, jp = jcat.resolve_material(spec)
         assert type(tm).__name__ == type(jm).__name__
-        n_t = tm.n(params_from_numpy(tp, dtype=F64), 0.55)
+        n_t = tm.n(params_from_numpy(tp, device="cpu", dtype=F64), 0.55)
         np.testing.assert_allclose(float(n_t), float(jm.n(jp, 0.55)),
                                    rtol=1e-12)
 
@@ -201,7 +203,7 @@ def test_params_converter_round_trip():
     import jax
     _, jp = JCooke().build()
     host = jax.tree_util.tree_map(np.asarray, jp)
-    tp = params_from_numpy(host, dtype=F64)
+    tp = params_from_numpy(host, device="cpu", dtype=F64)
     back = params_to_numpy(tp)
     leaves_h = jax.tree_util.tree_leaves(host)
     leaves_b = jax.tree_util.tree_leaves(back)
@@ -209,11 +211,12 @@ def test_params_converter_round_trip():
     for a, b in zip(leaves_h, leaves_b):
         assert np.array_equal(a, b)
     # the port's builder makes the same structure, leaf for leaf
-    _, own = CookeTriplet().build(dtype=F64)
+    _, own = CookeTriplet().build(device="cpu", dtype=F64)
     assert (jax.tree_util.tree_structure(params_to_numpy(own))
             == jax.tree_util.tree_structure(back))
     for a, b in zip(jax.tree_util.tree_leaves(params_to_numpy(own)),
                     leaves_b):
         assert np.array_equal(a, b)
-    f32 = params_from_numpy(host, dtype=torch.float32)
+    f32 = params_from_numpy(host, device="cpu",
+                            dtype=torch.float32)
     assert f32["surfaces"][1]["geom"]["radius"].dtype == torch.float32

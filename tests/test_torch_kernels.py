@@ -88,7 +88,7 @@ def jax_k1():
 
 def _port_tables(name, ref):
     _, tb = _builders(name)
-    model, params = tb().build(dtype=F32)
+    model, params = tb().build(device="cpu", dtype=F32)
     hy = torch.tensor(ref["fields"])
     gen, consts, acoef = tgt.gen_tables(model, params,
                                         torch.tensor(ref["wls"]),
@@ -102,7 +102,7 @@ SYSTEMS = ("CookeTriplet", "DoubleGauss", "TIRSinglet")
 @pytest.mark.parametrize("name", SYSTEMS)
 def test_model_flags_match_jax(name, jax_k1):
     _, tb = _builders(name)
-    model, params = tb().build()
+    model, params = tb().build(device="cpu")
     ours = tgt.model_flags(model, params)
     theirs = jax_k1[name]["flags"]
     assert ours == tuple(tuple(f[:3]) for f in theirs)
@@ -168,7 +168,7 @@ def test_gen_trace_conic_shapes_and_order(jax_k1):
     """Scalar and vector field/wavelength calls squeeze like the JAX
     entry point, and stay in (wavelength, field, pupil) order."""
     ref = jax_k1["CookeTriplet"]
-    model, params = tobj.CookeTriplet().build(dtype=F32)
+    model, params = tobj.CookeTriplet().build(device="cpu", dtype=F32)
     px, py = torch.tensor(ref["px"]), torch.tensor(ref["py"])
     n = px.shape[0]
     wls = torch.tensor(ref["wls"])
@@ -188,7 +188,7 @@ def test_gen_trace_conic_shapes_and_order(jax_k1):
 
 
 def test_engine_routing_on_cpu():
-    model, params = tobj.CookeTriplet().build()
+    model, params = tobj.CookeTriplet().build(device="cpu")
     assert kernel_eligible(model, 0.0, torch.zeros(3))
     assert resolve_engine(model, 0.0, 0.0, "cpu") == "eager"
     assert resolve_engine(model, 0.0, 0.0, "cuda") == "kernel"
@@ -215,7 +215,7 @@ def test_ineligible_systems_are_refused():
     lens.set_aperture("EPD", 5.0)
     lens.add_field(y=0.0)
     lens.add_wavelength(0.55)
-    model, params = lens.build()
+    model, params = lens.build(device="cpu")
     assert not tgt.supports_model(model)
     with pytest.raises(ValueError):
         resolve_engine(model, 0.0, 0.0, "cpu", mode="kernel")
@@ -239,7 +239,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unsupported_device_raises():
-    model, params = tobj.CookeTriplet().build(dtype=F32)
+    model, params = tobj.CookeTriplet().build(device="cpu", dtype=F32)
     t = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="no version for device"):
         tgt.gen_trace_conic(model, params, t, t, 0.55)
@@ -251,7 +251,7 @@ def test_chip_smoke_comparison(fault):
     """The kernel-vs-plain check of chip_smoke.py, on plain outputs: equal
     outputs pass, and a fault just outside each tolerance is caught."""
     from chip_smoke import compare
-    model, params = tobj.TIRSinglet().build(dtype=F32)
+    model, params = tobj.TIRSinglet().build(device="cpu", dtype=F32)
     hy = torch.tensor([0.0, 1.0])
     gen, consts, acoef = tgt.gen_tables(model, params, params["wavelengths"],
                                         torch.zeros_like(hy), hy)

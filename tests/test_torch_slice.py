@@ -32,7 +32,7 @@ def spots():
     out = {}
     for name in ("CookeTriplet", "DoubleGauss"):
         jm, jp = getattr(jobj, name)().build()
-        tm, tp = getattr(tobj, name)().build()
+        tm, tp = getattr(tobj, name)().build(device="cpu")
         with j_engine("xla"):
             sj = j_spot(jm, jp, num_rays=8)
         out[name] = (sj, t_spot(tm, tp, num_rays=8))
@@ -66,7 +66,7 @@ def test_encircled_energy_matches_jax(name, spots):
 def test_spot_through_kernel_plain_version_matches_eager(spots):
     """On CPU tensors the "kernel" engine runs K1's plain version at
     float32; it agrees with the float64 eager spot to float32 accuracy."""
-    tm, tp = tobj.CookeTriplet().build()
+    tm, tp = tobj.CookeTriplet().build(device="cpu")
     with t_engine("kernel"):
         sk = t_spot(tm, tp, num_rays=8)
     assert sk.x.dtype == torch.float32
@@ -82,7 +82,8 @@ def test_other_conic_samples_match_jax(name):
     tlens = getattr(tobj, name)()
     for hy in (0.0, 1.0):
         rj = jlens.trace(Hy=hy, num_rays=4, engine="xla")
-        rt = tlens.trace(Hy=hy, num_rays=4, engine="eager")
+        rt = tlens.trace(Hy=hy, num_rays=4, engine="eager",
+                         device="cpu")
         for f in ("x", "y", "z"):
             np.testing.assert_allclose(getattr(rt, f).numpy(),
                                        np.asarray(getattr(rj, f)), rtol=0,
@@ -99,9 +100,11 @@ def test_port_never_imports_jax():
         "from optiland_pr_tpu_torch.analysis import spot_diagram\n"
         "from optiland_pr_tpu_torch.trace.engine import engine_override\n"
         "import optiland_pr_tpu_torch.kernels.gen_trace\n"
+        "import optiland_pr_tpu_torch.kernels.gen_grad\n"
+        "import optiland_pr_tpu_torch.optimize\n"
         "lens = CookeTriplet()\n"
-        "model, params = lens.build()\n"
-        "rays = lens.trace(Hy=1.0, num_rays=4)\n"
+        "model, params = lens.build(device='cpu')\n"
+        "rays = lens.trace(Hy=1.0, num_rays=4, device='cpu')\n"
         "assert rays.x.shape[0] == 61\n"
         "with engine_override('kernel'):\n"
         "    s = spot_diagram(model, params, num_rays=3)\n"

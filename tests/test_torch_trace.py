@@ -21,6 +21,7 @@ from optiland_pr_tpu.trace.engine import final_rays as j_final_rays
 from optiland_pr_tpu.trace.paraxial import system_arrays as j_system_arrays
 from optiland_pr_tpu_torch.system.optic import Optic as TOptic
 from optiland_pr_tpu_torch.trace.engine import final_rays as t_final_rays
+from optiland_pr_tpu_torch.trace.paraxial import Paraxial
 from optiland_pr_tpu_torch.trace.paraxial import system_arrays as t_system_arrays
 from optiland_pr_tpu_torch.utils.convert import params_from_numpy
 
@@ -40,7 +41,7 @@ def _pupil(n, seed=0):
 def test_paraxial_values_match_jax(name):
     jb, tb = _builders(name)
     jpar = jb().paraxial
-    tpar = tb().paraxial
+    tpar = Paraxial(*tb().build(device="cpu"))
     for q in ("EPD", "EPL", "f2", "FNO"):
         np.testing.assert_allclose(float(getattr(tpar, q)()),
                                    float(getattr(jpar, q)()), rtol=1e-10,
@@ -52,7 +53,7 @@ def test_system_arrays_match_jax(name):
     """Radii, index after each surface and vertex positions."""
     jb, tb = _builders(name)
     jm, jp = jb().build()
-    tm, tp = tb().build()
+    tm, tp = tb().build(device="cpu")
     for wl in (0.48, 0.6):
         for a, b in zip(t_system_arrays(tm, tp, wl),
                         j_system_arrays(jm, jp, wl)):
@@ -86,7 +87,7 @@ def test_eager_trace_matches_jax(name, hy, poly):
     jb, tb = _builders(name)
     jlens, tlens = jb(), tb()
     jm, jp = jlens.build()
-    tm, tp = tlens.build(dtype=F64)
+    tm, tp = tlens.build(device="cpu", dtype=F64)
     px, py = _pupil(96, seed=1)
     wl = [float(w) for w in jlens.wavelengths] if poly else \
         jlens.primary_wavelength
@@ -103,7 +104,7 @@ def test_eager_trace_matches_jax(name, hy, poly):
 def test_field_vector_trace_matches_jax():
     """One call for all three fields (field-major output)."""
     jm, jp = jobj.CookeTriplet().build()
-    tm, tp = tobj.CookeTriplet().build()
+    tm, tp = tobj.CookeTriplet().build(device="cpu")
     px, py = _pupil(64, seed=2)
     hy = [0.0, 0.7, 1.0]
     rj = j_final_rays(jm, jp, jnp.zeros(3), jnp.asarray(hy), 0.55,
@@ -116,7 +117,7 @@ def test_field_vector_trace_matches_jax():
 
 def test_image_surface_state_without_final_propagation():
     jm, jp = jobj.DoubleGauss().build()
-    tm, tp = tobj.DoubleGauss().build()
+    tm, tp = tobj.DoubleGauss().build(device="cpu")
     px, py = _pupil(32, seed=3)
     rj = j_final_rays(jm, jp, 0.0, 0.5, 0.5876, jnp.asarray(px),
                       jnp.asarray(py), final_prop=False, engine="xla")
@@ -130,8 +131,9 @@ def test_converted_params_trace_equal_to_built_params():
     own build()."""
     import jax
     _, jp = jobj.CookeTriplet().build()
-    tm, tp = tobj.CookeTriplet().build()
-    conv = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    tm, tp = tobj.CookeTriplet().build(device="cpu")
+    conv = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                             device="cpu")
     px, py = _pupil(64, seed=4)
     args = (tm, 0.0, 1.0, 0.55, torch.tensor(px), torch.tensor(py))
     a = t_final_rays(args[0], tp, *args[1:], engine="eager")
@@ -143,7 +145,7 @@ def test_converted_params_trace_equal_to_built_params():
 def test_eager_trace_is_differentiable():
     """The eager path is the autograd reference: finite gradients with
     respect to radii and thicknesses, even with lost rays."""
-    tm, tp = tobj.TIRSinglet().build()
+    tm, tp = tobj.TIRSinglet().build(device="cpu")
     r1 = tp["surfaces"][1]["geom"]["radius"].requires_grad_(True)
     t2 = tp["surfaces"][2]["thickness"].requires_grad_(True)
     px, py = _pupil(64, seed=5)
@@ -165,4 +167,4 @@ def test_unported_surface_types_raise():
                      thickness=2.0, material="N-BK7", coefficients=[1e-4])
     lens.add_surface(index=2)
     with pytest.raises(NotImplementedError):
-        lens.build()
+        lens.build(device="cpu")

@@ -2,8 +2,10 @@
 (port of ``optiland_pr_tpu/geometry/base.py``).
 
 A geometry is a static object; its numbers live in a per-surface parameter
-dict. This slice ports the conic and plane geometries only: the Newton
-intersection that the freeform sags need comes with them in a later slice.
+dict. Conic and plane surfaces intersect in closed form (``conic_distance``);
+every other sag by ``newton_distance``: a conic warm start, a Newton search
+without gradient, then one differentiable Newton step at the root, whose
+gradient is the implicit-function-theorem one.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch
 
 from ..core.safe_math import safe_div
 
-__all__ = ["Geometry", "conic_distance", "normalize_normal"]
+__all__ = ["Geometry", "conic_distance", "newton_distance",
+           "normalize_normal"]
 
 
 def normalize_normal(dfdx, dfdy):
@@ -55,6 +58,41 @@ def conic_distance(radius, conic, x, y, z, L, M, N):
     return torch.where(is_plane, t0, t)
 
 
+def newton_distance(geom: "Geometry", p, x, y, z, L, M, N,
+                    tol: float = 1e-10, max_iter: int = 100):
+    """Newton-Raphson ray/sag intersection with a conic warm start.
+
+    The search runs under ``torch.no_grad()`` on detached values until the
+    largest finite residual is at most ``tol`` or ``max_iter`` steps have
+    run (rays that miss give non-finite residuals and are ignored); then one
+    differentiable Newton step at the root gives the exact
+    implicit-function-theorem gradient -f_theta / f_t with respect to the
+    surface parameters and the ray, without a tape through the search."""
+    def f_and_df(t, pp, xx, yy, zz, LL, MM, NN):
+        xi = xx + t * LL
+        yi = yy + t * MM
+        zi = zz + t * NN
+        f = geom.sag(pp, xi, yi) - zi
+        dfdx, dfdy = geom.sag_grad(pp, xi, yi)
+        return f, dfdx * LL + dfdy * MM - NN
+
+    with torch.no_grad():
+        p0 = {k: v.detach() for k, v in p.items()}
+        args0 = [v.detach() for v in (x, y, z, L, M, N)]
+        t = conic_distance(p0["radius"], p0["conic"], *args0)
+        # a NaN warm start (the conic is missed) would never converge
+        t = torch.where(torch.isnan(t), torch.zeros_like(t), t)
+        for _ in range(max_iter):
+            f, df = f_and_df(t, p0, *args0)
+            t = t - safe_div(f, df)
+            f_new, _ = f_and_df(t, p0, *args0)
+            err = torch.where(torch.isfinite(f_new), torch.abs(f_new), 0.0)
+            if err.numel() == 0 or float(err.max()) <= tol:
+                break
+    f, df = f_and_df(t, p, x, y, z, L, M, N)
+    return t - safe_div(f, df)
+
+
 class Geometry:
     """Base geometry. Subclasses define ``kind``, ``sag``, ``sag_grad`` and
     ``distance``.
@@ -80,7 +118,7 @@ class Geometry:
         return normalize_normal(dfdx, dfdy)
 
     def distance(self, p, x, y, z, L, M, N):
-        raise NotImplementedError
+        return newton_distance(self, p, x, y, z, L, M, N)
 
     def __repr__(self):
         return f"{type(self).__name__}()"

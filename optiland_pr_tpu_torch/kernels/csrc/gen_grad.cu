@@ -1,25 +1,34 @@
-// K2, sub-slice (a): the vector-Jacobian product of K1 (gen_trace.cu) by
-// per-ray recompute and a per-surface reverse sweep, one ray per thread.
+// K2, sub-slices (a), (b) and the even/odd aspheres of (c): the
+// vector-Jacobian product of K1 (gen_trace.cu) by per-ray recompute and a
+// per-surface reverse sweep, one ray per thread.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_grad.py::
-// _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic and
-// plane surfaces that refract or reflect, with absorption in the
-// pre-material. The TPU kernel ran jax.vjp inside the kernel; here the
+// _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic, plane
+// and even/odd aspheric surfaces that refract or reflect, with absorption in
+// the pre-material, tilt/decenter, radial and offset-radial apertures and
+// simple coatings. The TPU kernel ran jax.vjp inside the kernel; here the
 // adjoint of every branch is written out by hand, and it follows the
 // derivative conventions of PyTorch autograd on the plain version
 // (kernels/gen_grad.py::gen_trace_bwd_plain), which it is held against:
 //   - where(c, a, b) sends the cotangent to the taken branch only; the
-//     guarded square roots (sqrt(ok ? d : 1)) get none on the guarded side;
+//     guarded square roots (sqrt(ok ? d : 1), sqrt(arg > eps ? arg : eps))
+//     get none on the guarded side, max(r^2, 1e-24) none below the floor;
 //   - eps_guard passes the cotangent on |v| > eps and none on its clamp;
 //   - sign() has zero derivative; |v| has derivative sign(v), 0 at 0;
-//   - 1/sqrt(s) is differentiated as reciprocal(sqrt(s)).
+//   - 1/sqrt(s) is differentiated as reciprocal(sqrt(s));
+//   - the asphere's Newton steps are not differentiated: only its live last
+//     step is, so the cotangent is the implicit-function-theorem one, and
+//     the conic warm start gets none;
+//   - the aperture mask passes the intensity cotangent inside and none
+//     outside, and gives the aperture extents none.
 //
 // Inputs: the forward's tables and pupil samples (gen_trace_common.cuh,
 // gen_trace.cu) and the cotangents of its 8 outputs, cot [8, W, F, n].
 // Outputs:
 //   dgen    [F, 16]    columns 0-6, 8, 9 (the rest are 0), summed over W
-//   dconsts [W, S, 32] columns 0-5 (the rest are 0)
-//   dacoef  [S, C]     0: sub-slice (a) reads no geometry coefficients
+//   dconsts [W, S, 32] columns 0-5; 6 on a coated surface; 8-19 on a tilted
+//                      or decentered one (the rest are 0)
+//   dacoef  [S, C]     the asphere terms' (the rest are 0), summed over W
 //   dPx, dPy [n]       summed over W and F (optional)
 //
 // Design.
@@ -32,18 +41,20 @@
 //      it is indexed by the runtime surface number, so it lives in local
 //      memory (L1/L2), not in registers. Recompute from checkpoints would
 //      save that memory at O(S^2) arithmetic, and the kernel is bound by
-//      arithmetic (PERF.md).
+//      arithmetic (PERF.md). It is a template on WIDE too, as K1: the
+//      variant without (b) and (c) runs for conic/plane systems.
 //      The cotangents of x, y, z, L, M, N, opd are zeroed for lost rays (the
 //      transpose of _nanify8: a NaN cotangent from an unmasked consumer
 //      becomes 0); the intensity cotangent is not masked. The reverse sweep
 //      runs the epilogue's adjoint, then each surface's (recomputing that
 //      surface's intermediates from its boundary state), then the
 //      prologue's.
-//      Each surface's 6 constant cotangents (and the 9 of gen at the end)
-//      are summed over the block as soon as they are made: a warp shuffle
-//      tree, then the 8 warp sums in order from shared memory, into one
-//      partial per block, part[q][w][f][block], q = 6*k + column for
-//      surface k, 6*S + j for gen.
+//      Each surface's parameter cotangents are summed over the block as soon
+//      as they are made: a warp shuffle tree, then the 8 warp sums in order
+//      from shared memory, into one partial per block and quantity. The
+//      quantities ("slots") of surface k start at layout.qoff[k]: consts
+//      columns 0-5, then 6 if coated, then 8-19 if tilted, then its asphere
+//      terms; dgen's 9 follow the last surface's.
 //   2. gen_grad_reduce: one block per output element sums its partials in
 //      float64, each thread a fixed strided subset, then a fixed tree; the
 //      sums are 4M-36M float32 terms, so float64 keeps the order from
@@ -58,7 +69,9 @@
 // Bounds on an H100: per ray it reads 8 B of pupil and 32 B of cotangents
 // and writes 8 B of pupil cotangents per (w, f) plane; the arithmetic is
 // K1's forward twice (the sweep recomputes each surface) plus the adjoint,
-// ~3.4x K1's operations. Measured on an H100 (700 W): 1.03 ms for the
+// ~3.4x K1's operations for conic surfaces and more for aspheres (the
+// adjoint of the live Newton step and of the normal each re-evaluate the
+// sag and its derivatives). Measured on an H100 (700 W): 1.03 ms for the
 // Cooke triplet at 4M rays, ~5x K1's time per ray and ~9x the operation
 // bound, so it is bound by instruction issue, as K1 is (PERF.md).
 #include "gen_trace_common.cuh"
@@ -66,11 +79,39 @@
 #define GBLOCK 256
 #define NWARP (GBLOCK / 32)
 #define NGEN 9        // gen columns with a cotangent: 0-6, 8, 9
+#define NDC 19        // consts columns with a cotangent: 0-6, 8-19
 #define RBLOCK 256    // threads of the reduction kernels
+
+// The flag words and where each surface's slots start (qoff[S]: dgen's).
+struct GradLayout {
+    int32_t f[MAX_SURF];
+    int32_t qoff[MAX_SURF + 1];
+};
 
 struct Adj {
     float x, y, z, L, M, N, inten, opd;
 };
+
+__host__ __device__ __forceinline__ int n_slots(int fl) {
+    return 6 + ((fl & FLAG_COAT) ? 1 : 0) + ((fl & FLAG_CS) ? 12 : 0) + nu_of(fl);
+}
+
+// Slot of consts column j of surface k, or -1 if it has no cotangent.
+__device__ __forceinline__ int const_slot(const GradLayout& g, int k, int j) {
+    const int fl = g.f[k];
+    const int coat = (fl & FLAG_COAT) ? 1 : 0;
+    if (j < 6) return g.qoff[k] + j;
+    if (j == 6) return coat ? g.qoff[k] + 6 : -1;
+    if (j >= 8 && j <= 19 && (fl & FLAG_CS)) return g.qoff[k] + 6 + coat + (j - 8);
+    return -1;
+}
+
+// Slot of asphere term i of surface k, or -1.
+__device__ __forceinline__ int acoef_slot(const GradLayout& g, int k, int i) {
+    const int fl = g.f[k];
+    if (i >= nu_of(fl)) return -1;
+    return g.qoff[k] + 6 + ((fl & FLAG_COAT) ? 1 : 0) + ((fl & FLAG_CS) ? 12 : 0) + i;
+}
 
 __device__ __forceinline__ float sgn(float v) {
     return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
@@ -81,39 +122,162 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// Adjoint of surface_step. ``in`` is the surface's input state, (x2, y2) its
-// output position, ``tp`` its recomputed intermediates. ``a`` holds the
-// cotangent of the output state on entry and of the input state on return;
-// dc receives the cotangents of consts columns 0-5.
-__device__ __forceinline__ void surface_adjoint(const float* c, int fl,
-                                                const RayState& in, float x2,
-                                                float y2, const SurfTape& tp,
-                                                Adj& a, float dc[6]) {
+// Reverse of asphere_sag_grad (gen_trace_common.cuh): adds to (dxx, dyy,
+// dri, dconic, da[0..nu)) the cotangents of its inputs for the cotangents
+// (ds, dgx, dgy) of (s, gx, gy). Through the gradient's cotangents this
+// carries the sag's second derivatives, and their derivatives with respect
+// to the curvature, the conic and every term. Used by the live Newton step
+// (ds, dgx, dgy) and by the normal (0, dgx, dgy).
+__device__ __forceinline__ void asphere_sag_adjoint(
+        float ri, float conic, const float* ac, int nu, bool odd, float xx,
+        float yy, float ds, float dgx, float dgy, float& dxx, float& dyy,
+        float& dri, float& dconic, float* da) {
+    const float r2 = add(mul(xx, xx), mul(yy, yy));
+    const float B = mul(add(1.0f, conic), ri);
+    const float A = mul(B, ri);
+    const float arg = sub(1.0f, mul(A, r2));
+    const bool ok = arg > EPS_GUARD;
+    const float sq = sqt(ok ? arg : EPS_GUARD);
+    const float den = add(1.0f, sq);
+    const float s0 = dvd(mul(r2, ri), den);
+    const float inv_sq = dvd(1.0f, sq);
+    float dr2 = 0.0f;
+    // the terms: term_i and gterm_i are powers of ``step`` (r^2, or r for
+    // the odd asphere); dterm and dgterm carry their derivatives by step
+    float step, term, gterm, dterm, dgterm;
+    if (odd) {
+        step = sqt(fmaxf(r2, ODD_R2_MIN));
+        term = step;
+        gterm = dvd(1.0f, step);
+        dterm = 1.0f;
+        dgterm = -gterm * gterm;
+    } else {
+        step = r2;
+        term = r2;
+        gterm = 1.0f;
+        dterm = 1.0f;
+        dgterm = 0.0f;
+    }
+    float dstep = 0.0f;
+    for (int i = 0; i < nu; ++i) {
+        const float c = ac[i];
+        const float kk = odd ? (float)(i + 1) : 2.0f * (float)(i + 1);
+        const float gsum = dgx * (kk * xx) + dgy * (kk * yy);  // of c * gterm
+        da[i] += ds * term + gsum * gterm;
+        dxx += dgx * kk * c * gterm;
+        dyy += dgy * kk * c * gterm;
+        dstep += ds * c * dterm + gsum * c * dgterm;
+        dterm = dterm * step + term;
+        term = term * step;
+        dgterm = dgterm * step + gterm;
+        gterm = gterm * step;
+    }
+    if (odd)
+        dr2 += r2 >= ODD_R2_MIN ? dstep / (2.0f * step) : 0.0f;
+    else
+        dr2 += dstep;
+    // the conic base: gx = (xx ri) inv_sq, s0 = (r2 ri) / (1 + sq)
+    const float dxr = dgx * inv_sq, dyr = dgy * inv_sq;
+    const float dinv_sq = dgx * (xx * ri) + dgy * (yy * ri);
+    dxx += dxr * ri;
+    dyy += dyr * ri;
+    dri += dxr * xx + dyr * yy;
+    const float dnum = ds / den;
+    float dsq = -ds * s0 / den;
+    dr2 += dnum * ri;
+    dri += dnum * r2;
+    dsq -= dinv_sq * (inv_sq * inv_sq);
+    // sq = sqrt(arg > eps ? arg : eps), arg = 1 - ((1 + k) ri) ri r2
+    const float darg = ok ? dsq / (2.0f * sq) : 0.0f;
+    const float dA = -darg * r2;
+    dr2 -= darg * A;
+    const float dB = dA * ri;
+    dri += dA * B;
+    dconic += dB * ri;
+    dri += dB * (1.0f + conic);
+    dxx += 2.0f * xx * dr2;
+    dyy += 2.0f * yy * dr2;
+}
+
+// Adjoint of surface_step. ``in`` is the surface's input state, ``tp`` its
+// recomputed intermediates. ``a`` holds the cotangent of the output state on
+// entry and of the input state on return; dc receives the cotangents of
+// consts columns 0-6 and 8-19 (dc[7 + j - 8] for column j >= 8), da those of
+// the surface's asphere terms.
+template <bool WIDE>
+__device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
+                                                int fl, const RayState& in,
+                                                const SurfTape& tp, Adj& a,
+                                                float dc[NDC], float* da) {
     const float ri = c[0], conic = c[1];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
-    const float L = in.L, M = in.M, N = in.N;
+    const bool cs = WIDE && (fl & FLAG_CS);
+    const int gk = WIDE ? gkind_of(fl) : GK_CONIC;
+    const bool odd = gk == GK_ODD;
+    const int nu = WIDE ? nu_of(fl) : 0;
+    // the incoming direction and the landing point, in the surface's frame
+    const float L = tp.Ll, M = tp.Ml, N = tp.Nl;
+    const float x2 = tp.x2, y2 = tp.y2;
     const float t = tp.t;
     float dri = 0.0f, dconic = 0.0f, dpz = 0.0f, dn1 = 0.0f, dn2 = 0.0f,
           dalpha = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NDC; ++j) dc[j] = 0.0f;
 
-    // z_out = z2 + pos_z
-    dpz += a.z;
-    float ax2 = a.x, ay2 = a.y;
-    const float az2 = a.z;
-    float aL = 0.0f, aM = 0.0f, aN = 0.0f;    // cotangents of L, M, N in
+    // ---- globalize: (x, L)_out = R (x2, Lo)_local + t; else z_out = z2 +
+    // pos_z ---------------------------------------------------------------------
+    float ax2, ay2, az2, aLo, aMo, aNo;
+    if (cs) {
+        const float axg = a.x, ayg = a.y, azg = a.z;
+        const float aLg = a.L, aMg = a.M, aNg = a.N;
+        ax2 = c[8] * axg + c[11] * ayg + c[14] * azg;
+        ay2 = c[9] * axg + c[12] * ayg + c[15] * azg;
+        az2 = c[10] * axg + c[13] * ayg + c[16] * azg;
+        aLo = c[8] * aLg + c[11] * aMg + c[14] * aNg;
+        aMo = c[9] * aLg + c[12] * aMg + c[15] * aNg;
+        aNo = c[10] * aLg + c[13] * aMg + c[16] * aNg;
+        // rotation entry (i, j), column 8 + 3 i + j, in dc[7 + 3 i + j]
+        dc[7] = axg * x2 + aLg * tp.Lo;
+        dc[8] = axg * y2 + aLg * tp.Mo;
+        dc[9] = axg * tp.z2 + aLg * tp.No;
+        dc[10] = ayg * x2 + aMg * tp.Lo;
+        dc[11] = ayg * y2 + aMg * tp.Mo;
+        dc[12] = ayg * tp.z2 + aMg * tp.No;
+        dc[13] = azg * x2 + aNg * tp.Lo;
+        dc[14] = azg * y2 + aNg * tp.Mo;
+        dc[15] = azg * tp.z2 + aNg * tp.No;
+        dc[16] = axg;
+        dc[17] = ayg;
+        dc[18] = azg;
+    } else {
+        dpz += a.z;
+        ax2 = a.x;
+        ay2 = a.y;
+        az2 = a.z;
+        aLo = a.L;
+        aMo = a.M;
+        aNo = a.N;
+    }
+
+    // ---- coating: inten_out = inten * coat ---------------------------------
+    if (WIDE && (fl & FLAG_COAT)) {
+        dc[6] = a.inten * tp.inten_pc;
+        a.inten = a.inten * c[6];
+    }
 
     // ---- refract or reflect ------------------------------------------------
-    if (fl & FLAG_PLANE) {
+    float aL = 0.0f, aM = 0.0f, aN = 0.0f;     // cotangents of L, M, N in
+    if (gk == GK_CONIC && (fl & FLAG_PLANE)) {
         if (fl & FLAG_REFL) {                  // N_out = -N
-            aL = a.L;
-            aM = a.M;
-            aN = -a.N;
+            aL = aLo;
+            aM = aMo;
+            aN = -aNo;
         } else {                               // plane Snell
             const float u = tp.u;
-            float du = a.L * L + a.M * M;
-            aL = a.L * u;
-            aM = a.M * u;
-            const float droot = a.N * sgn(N);  // N_out = sign(N) * root_r
+            float du = aLo * L + aMo * M;
+            aL = aLo * u;
+            aM = aMo * u;
+            const float droot = aNo * sgn(N);  // N_out = sign(N) * root_r
             const float ddisc = tp.ok_r ? droot / (2.0f * tp.root_r) : 0.0f;
             // disc_r = 1 - (u*u) * (1 - N*N)
             const float duu = -ddisc * (1.0f - N * N);
@@ -127,24 +291,24 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
         float dnx, dny, dnz, ddot;
         if (fl & FLAG_REFL) {                  // d - 2 (d.n) n
             const float two_dot = 2.0f * tp.dot;
-            aL = a.L;
-            aM = a.M;
-            aN = a.N;
-            const float dtwo = -(a.L * tp.nx + a.M * tp.ny + a.N * tp.nz);
-            dnx = -a.L * two_dot;
-            dny = -a.M * two_dot;
-            dnz = -a.N * two_dot;
+            aL = aLo;
+            aM = aMo;
+            aN = aNo;
+            const float dtwo = -(aLo * tp.nx + aMo * tp.ny + aNo * tp.nz);
+            dnx = -aLo * two_dot;
+            dny = -aMo * two_dot;
+            dnz = -aNo * two_dot;
             ddot = 2.0f * dtwo;
         } else {                               // u d + w n
             const float u = tp.u, w = tp.w, dot = tp.dot;
-            aL = a.L * u;
-            aM = a.M * u;
-            aN = a.N * u;
-            float du = a.L * L + a.M * M + a.N * N;
-            dnx = a.L * w;
-            dny = a.M * w;
-            dnz = a.N * w;
-            const float dw = a.L * tp.nx + a.M * tp.ny + a.N * tp.nz;
+            aL = aLo * u;
+            aM = aMo * u;
+            aN = aNo * u;
+            float du = aLo * L + aMo * M + aNo * N;
+            dnx = aLo * w;
+            dny = aMo * w;
+            dnz = aNo * w;
+            const float dw = aLo * tp.nx + aMo * tp.ny + aNo * tp.nz;
             // w = sign(dot) * root_r - u * dot
             const float droot = dw * sgn(dot);
             du -= dw * dot;
@@ -174,27 +338,36 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
         const float dsum = dsn / (2.0f * tp.sn);
         ddfdx += 2.0f * tp.dfdx * dsum;
         ddfdy += 2.0f * tp.dfdy * dsum;
-        // dfdx = (x2 * ri) * inv_root
-        const float xr = x2 * ri, yr = y2 * ri;
-        const float dxr = ddfdx * tp.inv_root, dyr = ddfdy * tp.inv_root;
-        const float dinv_root = ddfdx * xr + ddfdy * yr;
-        ax2 += dxr * ri;
-        ay2 += dyr * ri;
-        dri += dxr * x2 + dyr * y2;
-        // inv_root = 1 / sqrt(arg > eps ? arg : 1)
-        const float dsr = -dinv_root * (tp.inv_root * tp.inv_root);
-        const float darg = tp.arg > EPS_GUARD ? dsr / (2.0f * tp.sr) : 0.0f;
-        // arg = 1 - (((1 + conic) * ri) * ri) * r2
-        const float B = (1.0f + conic) * ri;
-        const float A = B * ri;
-        const float dA = -darg * tp.r2;
-        const float dr2 = -darg * A;
-        const float dB = dA * ri;
-        dri += dA * B + dB * (1.0f + conic);
-        dconic += dB * ri;
-        ax2 += 2.0f * x2 * dr2;
-        ay2 += 2.0f * y2 * dr2;
+        if (gk != GK_CONIC) {
+            // (dfdx, dfdy) = the asphere's slope at (x2, y2)
+            asphere_sag_adjoint(ri, conic, ac, nu, odd, x2, y2, 0.0f, ddfdx,
+                                ddfdy, ax2, ay2, dri, dconic, da);
+        } else {
+            // dfdx = (x2 * ri) * inv_root
+            const float xr = x2 * ri, yr = y2 * ri;
+            const float dxr = ddfdx * tp.inv_root, dyr = ddfdy * tp.inv_root;
+            const float dinv_root = ddfdx * xr + ddfdy * yr;
+            ax2 += dxr * ri;
+            ay2 += dyr * ri;
+            dri += dxr * x2 + dyr * y2;
+            // inv_root = 1 / sqrt(arg > eps ? arg : 1)
+            const float dsr = -dinv_root * (tp.inv_root * tp.inv_root);
+            const float darg = tp.arg > EPS_GUARD ? dsr / (2.0f * tp.sr) : 0.0f;
+            // arg = 1 - (((1 + conic) * ri) * ri) * r2
+            const float B = (1.0f + conic) * ri;
+            const float A = B * ri;
+            const float dA = -darg * tp.r2;
+            const float dr2 = -darg * A;
+            const float dB = dA * ri;
+            dri += dA * B + dB * (1.0f + conic);
+            dconic += dB * ri;
+            ax2 += 2.0f * x2 * dr2;
+            ay2 += 2.0f * y2 * dr2;
+        }
     }
+
+    // ---- aperture: inten *= mask (no cotangent to the extents) -------------
+    if (WIDE && (fl & FLAG_AP)) a.inten = a.inten * tp.mask;
 
     // ---- absorption: inten_out = inten * exp(((-alpha) * t) * 1000) ------
     float dt = 0.0f;
@@ -217,7 +390,28 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
     float ax = ax2, ay = ay2, az1 = az2;
 
     // ---- intersection ----------------------------------------------------------
-    if (fl & FLAG_PLANE) {                     // t = (-z1) / N
+    if (gk != GK_CONIC) {
+        // the live Newton step t = t_it - f / eps_guard(dd), with f = s(xx,
+        // yy) - zz, dd = (gx L + gy M) - N at (xx, yy, zz) = (x, y, z1) +
+        // t_it (L, M, N); t_it and the warm start get no cotangent
+        const float dq = -dt;                  // of f / dg
+        const float df = dq / tp.dg;
+        const float ddg = -dq * tp.f / (tp.dg * tp.dg);
+        const float ddd = fabsf(tp.dd) > EPS_GUARD ? ddg : 0.0f;
+        aL += ddd * tp.ngx;
+        aM += ddd * tp.ngy;
+        aN -= ddd;
+        float dxx = 0.0f, dyy = 0.0f;
+        asphere_sag_adjoint(ri, conic, ac, nu, odd, tp.xx, tp.yy, df,
+                            ddd * L, ddd * M, dxx, dyy, dri, dconic, da);
+        const float dzz = -df;
+        ax += dxx;
+        ay += dyy;
+        az1 += dzz;
+        aL += dxx * tp.t_it;
+        aM += dyy * tp.t_it;
+        aN += dzz * tp.t_it;
+    } else if (fl & FLAG_PLANE) {              // t = (-z1) / N
         az1 -= dt / N;
         aN -= dt * t / N;
     } else {
@@ -231,14 +425,14 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
         float dq = fabsf(tp.q) > EPS_GUARD ? dqg : 0.0f;
         dq += dtf / tp.ag;
         const float dag = -dtf * tp.t_far / tp.ag;
-        float da = fabsf(tp.a) > EPS_GUARD ? dag : 0.0f;
+        float da_ = fabsf(tp.a) > EPS_GUARD ? dag : 0.0f;
         // q = -(bh + (bh >= 0 ? sq : -sq))
         float dbh = -dq;
         const float dsq = tp.bh >= 0.0f ? -dq : dq;
         // sq = sqrt(ok ? disc : 1), disc = bh^2 - a cc
         const float ddisc = tp.ok ? dsq / (2.0f * tp.sq) : 0.0f;
         dbh += 2.0f * tp.bh * ddisc;
-        da -= ddisc * tp.cc;
+        da_ -= ddisc * tp.cc;
         dcc -= ddisc * tp.a;
         // cc = (x0^2 + y0^2) ri
         const float x0 = tp.x0, y0 = tp.y0;
@@ -255,8 +449,8 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
         dx0 += dlin * L;
         dy0 += dlin * M;
         // a = ((conic N) N + 1) ri
-        const float dinn = da * ri;
-        dri += da * (conic * N * N + 1.0f);
+        const float dinn = da_ * ri;
+        dri += da_ * (conic * N * N + 1.0f);
         dconic += dinn * N * N;
         aN += 2.0f * dinn * conic * N;
         // (x0, y0) = (x, y) + t0 (L, M)
@@ -269,15 +463,38 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
         az1 -= dt0 / N;
         aN -= dt0 * tp.t0 / N;
     }
-    // z1 = z - pos_z
-    dpz -= az1;
 
-    a.x = ax;
-    a.y = ay;
-    a.z = az1;
-    a.L = aL;
-    a.M = aM;
-    a.N = aN;
+    // ---- localize: (x, L)_local = R^T ((x, L) - t); else z1 = z - pos_z -----
+    if (cs) {
+        const float dx0 = sub(in.x, c[17]), dy0 = sub(in.y, c[18]);
+        const float dz0 = sub(in.z, c[19]);
+        a.x = c[8] * ax + c[9] * ay + c[10] * az1;
+        a.y = c[11] * ax + c[12] * ay + c[13] * az1;
+        a.z = c[14] * ax + c[15] * ay + c[16] * az1;
+        a.L = c[8] * aL + c[9] * aM + c[10] * aN;
+        a.M = c[11] * aL + c[12] * aM + c[13] * aN;
+        a.N = c[14] * aL + c[15] * aM + c[16] * aN;
+        dc[7] += ax * dx0 + aL * in.L;
+        dc[8] += ay * dx0 + aM * in.L;
+        dc[9] += az1 * dx0 + aN * in.L;
+        dc[10] += ax * dy0 + aL * in.M;
+        dc[11] += ay * dy0 + aM * in.M;
+        dc[12] += az1 * dy0 + aN * in.M;
+        dc[13] += ax * dz0 + aL * in.N;
+        dc[14] += ay * dz0 + aM * in.N;
+        dc[15] += az1 * dz0 + aN * in.N;
+        dc[16] -= a.x;
+        dc[17] -= a.y;
+        dc[18] -= a.z;
+    } else {
+        dpz -= az1;
+        a.x = ax;
+        a.y = ay;
+        a.z = az1;
+        a.L = aL;
+        a.M = aM;
+        a.N = aN;
+    }
     dc[0] = dri;
     dc[1] = dconic;
     dc[2] = dpz;
@@ -286,17 +503,19 @@ __device__ __forceinline__ void surface_adjoint(const float* c, int fl,
     dc[5] = dalpha;
 }
 
-template <int MAXS>
+template <int MAXS, bool WIDE>
 __global__ void __launch_bounds__(GBLOCK)
 gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
-                const float* __restrict__ px, const float* __restrict__ py,
-                const float* __restrict__ cot, float* __restrict__ part,
-                float* __restrict__ dpx_wf, float* __restrict__ dpy_wf,
-                const SurfFlags flags, int S, int F, int W, long long n,
-                int nblk, int final_prop) {
+                const float* __restrict__ acoef, const float* __restrict__ px,
+                const float* __restrict__ py, const float* __restrict__ cot,
+                float* __restrict__ part, float* __restrict__ dpx_wf,
+                float* __restrict__ dpy_wf, const GradLayout layout, int S,
+                int F, int W, int C, long long n, int nblk, int final_prop) {
     __shared__ float sc[MAXS * CONST_W];
     __shared__ float sg[GEN_W];
-    __shared__ float sw[NWARP][6 * MAXS + NGEN];
+    // the per-warp sums, [NWARP][nq]
+    extern __shared__ float sw[];
+    const int nq = layout.qoff[S] + NGEN;
     const int f = blockIdx.y;
     const int w = blockIdx.z;
     const float* cw = consts + (size_t)w * S * CONST_W;
@@ -326,7 +545,8 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         st[k][5] = s.N;
         st[k][6] = s.inten;
         SurfTape tp;
-        surface_step(sc + k * CONST_W, flags.f[k], s, tp);
+        surface_step<WIDE>(sc + k * CONST_W, acoef + (size_t)k * C,
+                           layout.f[k], s, tp);
     }
 
     // ---- cotangents; the NaN step's transpose zeroes lost rays' ------------
@@ -359,7 +579,8 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     // ---- surfaces in reverse -----------------------------------------------
     for (int k = S - 1; k >= 0; --k) {
         const float* c = sc + k * CONST_W;
-        const int fl = flags.f[k];
+        const float* ac = acoef + (size_t)k * C;
+        const int fl = layout.f[k];
         RayState in;
         in.x = st[k][0];
         in.y = st[k][1];
@@ -372,13 +593,37 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         in.valid = true;
         RayState out = in;
         SurfTape tp;
-        surface_step(c, fl, out, tp);
-        float dc[6];
-        surface_adjoint(c, fl, in, out.x, out.y, tp, a, dc);
+        surface_step<WIDE>(c, ac, fl, out, tp);
+        float dc[NDC];
+        float da[WIDE ? MAX_TERMS : 1];
+        const int nu = WIDE ? nu_of(fl) : 0;
+        for (int j = 0; j < nu; ++j) da[j] = 0.0f;
+        surface_adjoint<WIDE>(c, ac, fl, in, tp, a, dc, da);
+        int q = layout.qoff[k];
 #pragma unroll
         for (int j = 0; j < 6; ++j) {
             const float v = warp_sum(active ? dc[j] : 0.0f);
-            if (lane == 0) sw[warp][6 * k + j] = v;
+            if (lane == 0) sw[warp * nq + q + j] = v;
+        }
+        if (WIDE) {
+            q += 6;
+            if (fl & FLAG_COAT) {
+                const float v = warp_sum(active ? dc[6] : 0.0f);
+                if (lane == 0) sw[warp * nq + q] = v;
+                ++q;
+            }
+            if (fl & FLAG_CS) {
+#pragma unroll
+                for (int j = 7; j < NDC; ++j) {
+                    const float v = warp_sum(active ? dc[j] : 0.0f);
+                    if (lane == 0) sw[warp * nq + q + j - 7] = v;
+                }
+                q += 12;
+            }
+            for (int j = 0; j < nu; ++j) {
+                const float v = warp_sum(active ? da[j] : 0.0f);
+                if (lane == 0) sw[warp * nq + q + j] = v;
+            }
         }
     }
 
@@ -415,24 +660,25 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         dpx_wf[o] = ddxr * g[8] + ax * g[0];
         dpy_wf[o] = ddyr * g[9] + ay * g[1];
     }
+    const int qg = layout.qoff[S];
 #pragma unroll
     for (int j = 0; j < NGEN; ++j) {
         const float v = warp_sum(active ? dgv[j] : 0.0f);
-        if (lane == 0) sw[warp][6 * S + j] = v;
+        if (lane == 0) sw[warp * nq + qg + j] = v;
     }
     __syncthreads();
 
-    // ---- one partial per block and quantity, warps summed in order ----------
+    // ---- one partial per block and slot, warps summed in order --------------
     const size_t nb = (size_t)W * F * nblk;
     const size_t b = ((size_t)w * F + f) * nblk + blockIdx.x;
-    for (int q = threadIdx.x; q < 6 * S + NGEN; q += GBLOCK) {
+    for (int qq = threadIdx.x; qq < nq; qq += GBLOCK) {
         float v = 0.0f;
-        for (int j = 0; j < NWARP; ++j) v += sw[j][q];
-        part[(size_t)q * nb + b] = v;
+        for (int j = 0; j < NWARP; ++j) v += sw[j * nq + qq];
+        part[(size_t)qq * nb + b] = v;
     }
 }
 
-// gen columns 0-15 -> partial index (-1: no cotangent)
+// gen columns 0-15 -> slot after the surfaces' (-1: no cotangent)
 __device__ __forceinline__ int gen_slot(int col) {
     return col <= 6 ? col : (col == 8 ? 7 : (col == 9 ? 8 : -1));
 }
@@ -442,24 +688,22 @@ __device__ __forceinline__ int gen_slot(int col) {
 // contiguous floats, seg_stride apart.
 __global__ void __launch_bounds__(RBLOCK)
 gen_grad_reduce(const float* __restrict__ part, float* __restrict__ dgen,
-                float* __restrict__ dconsts, float* __restrict__ dacoef, int S,
-                int F, int W, int nblk, int C) {
+                float* __restrict__ dconsts, float* __restrict__ dacoef,
+                const GradLayout layout, int S, int F, int W, int nblk, int C) {
     __shared__ double red[RBLOCK];
     const long long e = blockIdx.x;
     const long long n_dc = (long long)W * S * CONST_W;
     const long long n_dg = (long long)F * GEN_W;
     const size_t nb = (size_t)W * F * nblk;
     float* dst;
-    long long q = -1;
     size_t base = 0, seg_stride = 0;
     long long nseg = 0, seglen = 0;
     if (e < n_dc) {
         dst = dconsts + e;
         const int w = (int)(e / ((long long)S * CONST_W));
         const int k = (int)((e / CONST_W) % S);
-        const int j = (int)(e % CONST_W);
-        if (j < 6) {                           // sum over f and blocks
-            q = 6 * k + j;
+        const int q = const_slot(layout, k, (int)(e % CONST_W));
+        if (q >= 0) {                          // sum over f and blocks
             base = (size_t)q * nb + (size_t)w * F * nblk;
             nseg = 1;
             seglen = (long long)F * nblk;
@@ -469,14 +713,20 @@ gen_grad_reduce(const float* __restrict__ part, float* __restrict__ dgen,
         const int f = (int)((e - n_dc) / GEN_W);
         const int slot = gen_slot((int)((e - n_dc) % GEN_W));
         if (slot >= 0) {                       // sum over w and blocks
-            q = 6 * S + slot;
-            base = (size_t)q * nb + (size_t)f * nblk;
+            base = (size_t)(layout.qoff[S] + slot) * nb + (size_t)f * nblk;
             seg_stride = (size_t)F * nblk;
             nseg = W;
             seglen = nblk;
         }
     } else {
-        dst = dacoef + (e - n_dc - n_dg);
+        const long long ea = e - n_dc - n_dg;
+        dst = dacoef + ea;
+        const int q = acoef_slot(layout, (int)(ea / C), (int)(ea % C));
+        if (q >= 0) {                          // sum over w, f and blocks
+            base = (size_t)q * nb;
+            nseg = 1;
+            seglen = (long long)nb;
+        }
     }
     double acc = 0.0;
     for (long long sgi = 0; sgi < nseg; ++sgi) {
@@ -505,61 +755,103 @@ sum_wf(const float* __restrict__ src, float* __restrict__ dst, int WF,
 
 static int n_blocks(long long n) { return (int)((n + GBLOCK - 1) / GBLOCK); }
 
-// Floats of the partials buffer gen_grad_launch needs.
-extern "C" long long gen_grad_partials_size(int S, int F, int W, long long n) {
-    return (long long)(6 * S + NGEN) * W * F * n_blocks(n);
+// The flag words and slot offsets of S surfaces; false if a word is invalid.
+static bool make_layout(const int32_t* flags, int S, int C, GradLayout& g) {
+    int q = 0;
+    for (int k = 0; k < MAX_SURF; ++k) {
+        g.f[k] = k < S ? flags[k] : 0;
+        if (nu_of(g.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS)) return false;
+        g.qoff[k] = q;
+        if (k < S) q += n_slots(g.f[k]);
+    }
+    g.qoff[MAX_SURF] = q;
+    return true;
 }
 
-template <int MAXS>
-static void launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
-                          const float* consts, const float* px, const float* py,
-                          const float* cot, float* part, float* dpx_wf,
-                          float* dpy_wf, const SurfFlags& fl, int S, int F,
-                          int W, long long n, int nblk, int final_prop) {
-    gen_grad_kernel<MAXS><<<grid, GBLOCK, 0, stream>>>(
-        gen, consts, px, py, cot, part, dpx_wf, dpy_wf, fl, S, F, W, n, nblk,
-        final_prop);
+// Floats of the partials buffer gen_grad_launch needs (-1 for bad flags).
+extern "C" long long gen_grad_partials_size(const int32_t* flags, int S, int F,
+                                            int W, long long n) {
+    GradLayout g;
+    if (S < 1 || S > MAX_SURF || !make_layout(flags, S, MAX_TERMS, g)) return -1;
+    return (long long)(g.qoff[S] + NGEN) * W * F * n_blocks(n);
+}
+
+template <int MAXS, bool WIDE>
+static int launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
+                         const float* consts, const float* acoef,
+                         const float* px, const float* py, const float* cot,
+                         float* part, float* dpx_wf, float* dpy_wf,
+                         const GradLayout& g, int S, int F, int W, int C,
+                         long long n, int nblk, int final_prop) {
+    const size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
+    if (shmem > 48 * 1024) {
+        const int err = (int)cudaFuncSetAttribute(
+            gen_grad_kernel<MAXS, WIDE>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+        if (err) return err;
+    }
+    gen_grad_kernel<MAXS, WIDE><<<grid, GBLOCK, shmem, stream>>>(
+        gen, consts, acoef, px, py, cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
+        n, nblk, final_prop);
+    return (int)cudaGetLastError();
+}
+
+template <bool WIDE>
+static int launch_grad(dim3 grid, cudaStream_t st, const float* gen,
+                       const float* consts, const float* acoef,
+                       const float* px, const float* py, const float* cot,
+                       float* part, float* dpx_wf, float* dpy_wf,
+                       const GradLayout& g, int S, int F, int W, int C,
+                       long long n, int nblk, int final_prop) {
+    if (S <= 8)
+        return launch_bucket<8, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
+                                      part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                      nblk, final_prop);
+    if (S <= 16)
+        return launch_bucket<16, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
+                                       part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                       nblk, final_prop);
+    if (S <= 32)
+        return launch_bucket<32, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
+                                       part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                       nblk, final_prop);
+    return launch_bucket<64, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
+                                   part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                   nblk, final_prop);
 }
 
 // Launch the three kernels on ``stream``; returns cudaGetLastError() after
-// each launch (0 on success). flags is a host array of S words; part holds
-// gen_grad_partials_size floats; dpx_wf/dpy_wf hold W*F*n floats each, or
-// are null (then dpx/dpy are not written). Allocates nothing and does not
-// synchronise.
+// each launch (0 on success). flags is a host array of S words; acoef has C
+// floats per surface; part holds gen_grad_partials_size floats;
+// dpx_wf/dpy_wf hold W*F*n floats each, or are null (then dpx/dpy are not
+// written). Allocates nothing and does not synchronise.
 extern "C" int gen_grad_launch(const float* gen, const float* consts,
-                               const float* px, const float* py,
-                               const float* cot, float* part, float* dpx_wf,
-                               float* dpy_wf, float* dgen, float* dconsts,
-                               float* dacoef, float* dpx, float* dpy,
-                               const int32_t* flags, int S, int F, int W,
-                               long long n, int C, int final_prop,
+                               const float* acoef, const float* px,
+                               const float* py, const float* cot, float* part,
+                               float* dpx_wf, float* dpy_wf, float* dgen,
+                               float* dconsts, float* dacoef, float* dpx,
+                               float* dpy, const int32_t* flags, int S, int F,
+                               int W, int C, long long n, int final_prop,
                                void* stream) {
+    GradLayout g;
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
-        n < 1 || C < 0 || (dpx_wf == nullptr) != (dpy_wf == nullptr))
+        n < 1 || C < 0 || (dpx_wf == nullptr) != (dpy_wf == nullptr) ||
+        !make_layout(flags, S, C, g))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    SurfFlags fl;
-    for (int k = 0; k < MAX_SURF; ++k) fl.f[k] = k < S ? flags[k] : 0;
     const int nblk = n_blocks(n);
     const dim3 grid((unsigned)nblk, (unsigned)F, (unsigned)W);
-    if (S <= 8)
-        launch_bucket<8>(grid, st, gen, consts, px, py, cot, part, dpx_wf,
-                         dpy_wf, fl, S, F, W, n, nblk, final_prop);
-    else if (S <= 16)
-        launch_bucket<16>(grid, st, gen, consts, px, py, cot, part, dpx_wf,
-                          dpy_wf, fl, S, F, W, n, nblk, final_prop);
-    else if (S <= 32)
-        launch_bucket<32>(grid, st, gen, consts, px, py, cot, part, dpx_wf,
-                          dpy_wf, fl, S, F, W, n, nblk, final_prop);
-    else
-        launch_bucket<64>(grid, st, gen, consts, px, py, cot, part, dpx_wf,
-                          dpy_wf, fl, S, F, W, n, nblk, final_prop);
-    int err = (int)cudaGetLastError();
+    int err = needs_wide(g.f, S)
+        ? launch_grad<true>(grid, st, gen, consts, acoef, px, py, cot, part,
+                            dpx_wf, dpy_wf, g, S, F, W, C, n, nblk, final_prop)
+        : launch_grad<false>(grid, st, gen, consts, acoef, px, py, cot, part,
+                             dpx_wf, dpy_wf, g, S, F, W, C, n, nblk, final_prop);
     if (err) return err;
     const long long n_out = (long long)W * S * CONST_W + (long long)F * GEN_W
                             + (long long)S * C;
     gen_grad_reduce<<<(unsigned)n_out, RBLOCK, 0, st>>>(part, dgen, dconsts,
-                                                        dacoef, S, F, W, nblk, C);
+                                                        dacoef, g, S, F, W,
+                                                        nblk, C);
     err = (int)cudaGetLastError();
     if (err || dpx_wf == nullptr) return err;
     const unsigned g1 = (unsigned)((n + RBLOCK - 1) / RBLOCK);

@@ -1,15 +1,16 @@
-// K1, sub-slice (a): fused ray generation + conic/plane surface stack +
-// image propagation, one ray per thread.
+// K1, sub-slices (a), (b) and the even/odd aspheres of (c): fused ray
+// generation + surface stack + image propagation, one ray per thread.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_trace.py::
 // _pallas_gen_trace_2d (body _gen_kernel -> _gen_pipeline = _gen_prologue,
-// _surface_step per surface, _gen_epilogue, _nanify8) for conic and plane
-// surfaces that refract or reflect, with absorption in the pre-material.
-// The device code of the three stages is gen_trace_common.cuh, which the
-// backward kernel (gen_grad.cu) shares.
+// _surface_step per surface, _gen_epilogue, _nanify8) for conic, plane and
+// even/odd aspheric surfaces that refract or reflect, with absorption in the
+// pre-material, tilt/decenter, radial and offset-radial apertures and simple
+// coatings. The device code of the three stages is gen_trace_common.cuh,
+// which the backward kernel (gen_grad.cu) shares.
 //
 // Layout (shared with the plain version, kernels/gen_trace.py): the tables of
-// gen_trace_common.cuh, plus
+// gen_trace_common.cuh (acoef [S, C] with row stride C), plus
 //   Px, Py [n]         normalized pupil samples, shared by every (w, f)
 //   out    [8, W, F, n] x, y, z, L, M, N, intensity, opd
 //
@@ -18,7 +19,10 @@
 // the same word: a broadcast), keeps the ray state in registers through the
 // whole stack, masks the ragged tail, and writes the 8 outputs once. The
 // surface loop branches on a flag word that is uniform across the grid, so
-// no warp diverges on it.
+// no warp diverges on it. The asphere terms are read from device memory
+// (every thread of a block the same word: cached broadcasts). Two variants
+// (gen_trace_common.cuh): the host launches the WIDE one only for a system
+// with a tilt, an aperture, a coating or an asphere.
 //
 // Bounds on an H100: the kernel reads the 8 B of each pupil sample and
 // writes 32 B per ray; at 36M rays (3 fields x 3 wavelengths x 4M) that is
@@ -26,16 +30,21 @@
 // operations plus ~6 IEEE divisions and ~4 IEEE square roots, each a
 // multi-instruction sequence with a quarter-rate MUFU step. Measured on an
 // H100 (700 W): 1.92 ms for that case, 600 GB/s of output, so the kernel is
-// bound by instruction issue, not by memory bandwidth (PERF.md).
+// bound by instruction issue, not by memory bandwidth (PERF.md). An asphere
+// adds 10 evaluations of its sag (8 Newton steps, the live step, the normal),
+// each ~20 operations and a division plus 6 per term: the aspheric cases are
+// bound by operations too.
 #include "gen_trace_common.cuh"
 
 #define BLOCK 256
 
+template <bool WIDE>
 __global__ void __launch_bounds__(BLOCK)
 gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
-                 const float* __restrict__ px, const float* __restrict__ py,
-                 float* __restrict__ out, const SurfFlags flags, int S, int F,
-                 int W, long long n, int final_prop) {
+                 const float* __restrict__ acoef, const float* __restrict__ px,
+                 const float* __restrict__ py, float* __restrict__ out,
+                 const SurfFlags flags, int S, int F, int W, int C, long long n,
+                 int final_prop) {
     __shared__ float sc[MAX_SURF * CONST_W];
     __shared__ float sg[GEN_W];
     const int f = blockIdx.y;
@@ -52,7 +61,8 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     gen_prologue(sg, px[i], py[i], s);
     for (int k = 0; k < S; ++k) {
         SurfTape tp;
-        surface_step(sc + k * CONST_W, flags.f[k], s, tp);
+        surface_step<WIDE>(sc + k * CONST_W, acoef + (size_t)k * C, flags.f[k],
+                           s, tp);
     }
     gen_epilogue(sg, final_prop, s);
 
@@ -73,17 +83,29 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
 }
 
 // Launch on ``stream``; returns cudaGetLastError() (0 on success). flags is a
-// host array of S words. Allocates nothing and does not synchronise.
+// host array of S words; acoef has C floats per surface. Allocates nothing
+// and does not synchronise.
 extern "C" int gen_trace_launch(const float* gen, const float* consts,
-                                const float* px, const float* py, float* out,
+                                const float* acoef, const float* px,
+                                const float* py, float* out,
                                 const int32_t* flags, int S, int F, int W,
-                                long long n, int final_prop, void* stream) {
-    if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 || n < 1)
+                                int C, long long n, int final_prop,
+                                void* stream) {
+    if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
+        n < 1 || C < 0)
         return (int)cudaErrorInvalidValue;
     SurfFlags fl;
-    for (int k = 0; k < MAX_SURF; ++k) fl.f[k] = k < S ? flags[k] : 0;
+    for (int k = 0; k < MAX_SURF; ++k) {
+        fl.f[k] = k < S ? flags[k] : 0;
+        if (nu_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS))
+            return (int)cudaErrorInvalidValue;
+    }
     const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK), (unsigned)F, (unsigned)W);
-    gen_trace_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        gen, consts, px, py, out, fl, S, F, W, n, final_prop);
+    if (needs_wide(fl.f, S))
+        gen_trace_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+            gen, consts, acoef, px, py, out, fl, S, F, W, C, n, final_prop);
+    else
+        gen_trace_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+            gen, consts, acoef, px, py, out, fl, S, F, W, C, n, final_prop);
     return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""K2 in the port: the backward of K1, sub-slice (a) (counterpart of
+"""K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b)
+and the even/odd aspheres of (c) (counterpart of
 ``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
 ``diff_gen_trace`` custom_vjp).
 
@@ -24,8 +25,8 @@ import ctypes
 
 import torch
 
-from .gen_trace import (CONST_W, GEN_W, MAX_SURFACES, _flag_words,
-                        build_kernel, gen_trace_cuda, gen_trace_plain)
+from .gen_trace import (CONST_W, GEN_W, build_kernel, check_tables,
+                        gen_trace_cuda, gen_trace_plain)
 
 __all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
 
@@ -37,11 +38,11 @@ def gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot, flags,
     through the plain version."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True)
-                  for t in (gen, consts, Px, Py)]
-        g, c, px, py = leaves
-        out = gen_trace_plain(g, c, acoef, px, py, flags, final_prop)
-        dgen, dconsts, dpx, dpy = torch.autograd.grad(out, leaves, cot)
-    return dgen, dconsts, torch.zeros_like(acoef), dpx, dpy
+                  for t in (gen, consts, acoef, Px, Py)]
+        out = gen_trace_plain(*leaves, flags, final_prop)
+        grads = torch.autograd.grad(out, leaves, cot, allow_unused=True)
+    return tuple(torch.zeros_like(t) if d is None else d
+                 for t, d in zip(leaves, grads))
 
 
 def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
@@ -49,30 +50,18 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
     """Launch the CUDA K2 on the current stream; returns what
     ``gen_trace_bwd_plain`` returns, with dPx/dPy None unless
     ``pupil_grad``. Raises on anything the kernel does not take."""
+    (W, S, F, n, C), words = check_tables(gen, consts, acoef, Px, Py, flags,
+                                          cot=cot)
+    if tuple(cot.shape) != (8, W, F, n) or n < 1:
+        raise ValueError("cot must be [8, W, F, n] with n >= 1")
     dev = Px.device
-    for name, t in (("gen", gen), ("consts", consts), ("acoef", acoef),
-                    ("Px", Px), ("Py", Py), ("cot", cot)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor on {dev}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
-    W, S = consts.shape[0], consts.shape[1]
-    F, n = gen.shape[0], Px.shape[0]
-    if (consts.shape[2] != CONST_W or gen.shape[1] != GEN_W
-            or Px.shape != Py.shape or Px.ndim != 1 or acoef.ndim != 2
-            or acoef.shape[0] != S or tuple(cot.shape) != (8, W, F, n)):
-        raise ValueError("bad table shapes: gen [F, 16], consts [W, S, 32], "
-                         "acoef [S, C], Px/Py [n], cot [8, W, F, n]")
-    if len(flags) != S or not 1 <= S <= MAX_SURFACES:
-        raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
-                         f"each, got {S} surfaces and {len(flags)} flags")
-    if not (1 <= F <= 65535 and 1 <= W <= 65535 and n >= 1):
-        raise ValueError("F and W must be in 1..65535 and n >= 1")
     lib = build_kernel("gen_grad")
+    words = (ctypes.c_int32 * S)(*words)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    part = empty(lib.gen_grad_partials_size(S, F, W, n))
+    part = empty(lib.gen_grad_partials_size(ctypes.addressof(words), S, F, W,
+                                            n))
     dgen, dconsts, dacoef = empty(F, GEN_W), empty(W, S, CONST_W), \
         empty(*acoef.shape)
     if pupil_grad:
@@ -83,14 +72,13 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
     else:
         dpx = dpy = None
         ptrs = outs = [None, None]
-    words = (ctypes.c_int32 * S)(*_flag_words(flags))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.gen_grad_launch(
-            gen.data_ptr(), consts.data_ptr(), Px.data_ptr(), Py.data_ptr(),
-            cot.data_ptr(), part.data_ptr(), *ptrs, dgen.data_ptr(),
-            dconsts.data_ptr(), dacoef.data_ptr(), *outs,
-            ctypes.addressof(words), S, F, W, n, acoef.shape[1],
+            gen.data_ptr(), consts.data_ptr(), acoef.data_ptr(),
+            Px.data_ptr(), Py.data_ptr(), cot.data_ptr(), part.data_ptr(),
+            *ptrs, dgen.data_ptr(), dconsts.data_ptr(), dacoef.data_ptr(),
+            *outs, ctypes.addressof(words), S, F, W, C, n,
             int(bool(final_prop)), stream)
     if err != 0:
         raise RuntimeError(f"gen_grad kernel launch failed: CUDA error {err}")

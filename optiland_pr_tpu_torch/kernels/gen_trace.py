@@ -1,7 +1,16 @@
 """K1 in the port: fused ray generation + surface stack + image propagation
 (counterpart of ``optiland_pr_tpu/kernels/pallas_trace.py::_pallas_gen_trace_2d``
-and its entry point ``pallas_gen_trace_conic``), sub-slice (a): conic and plane
-surfaces that refract or reflect, with absorption in the pre-material.
+and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b) and the
+even/odd part of (c):
+- (a) conic and plane surfaces that refract or reflect, with absorption in
+  the pre-material;
+- (b) tilted and decentered surfaces (localize before the intersection,
+  globalize after the interaction), radial and offset-radial apertures
+  (intensity masking in the local frame) and simple coatings (an intensity
+  factor after the interaction);
+- (c), even and odd aspheres: the conic root as a warm start, exactly
+  ``NEWTON_ITERS`` Newton steps without gradient, then one differentiable
+  step (its gradient is the implicit-function-theorem one).
 
 The module holds
 - the host plumbing: ``supports_model``, ``gen_eligible``, ``model_flags``,
@@ -37,19 +46,29 @@ import numpy as np
 import torch
 
 from ..core.rays import Rays
+from ..core.transforms import rotation_matrix
 from ..system.model import OpticModel, positions_from_params
 
-__all__ = ["supports_model", "gen_eligible", "model_flags",
+__all__ = ["supports_model", "gen_eligible", "model_flags", "NEWTON_ITERS",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
            "gen_trace_plain", "gen_trace_cuda", "gen_trace_conic",
-           "build_kernel", "build_kernels", "BUILD_LOG"]
+           "check_tables", "build_kernel", "build_kernels", "BUILD_LOG"]
 
 CONST_W = 32       # per-surface constant row width
 GEN_W = 16         # per-field launch row width
 MAX_SURFACES = 64  # the kernel's static flag table (csrc/gen_trace.cu)
+MAX_TERMS = 32     # asphere terms a surface may carry (csrc/gen_grad.cu)
+NEWTON_ITERS = 8   # fixed Newton refinements of an asphere intersection
 _EPS = 1e-14
 
+# the flag word of a surface (csrc/gen_trace_common.cuh): bits 0-5 the
+# booleans, bits 6-7 the sag kind, bits 8-15 the number of asphere terms
 FLAG_PLANE, FLAG_REFL, FLAG_ABSORB = 1, 2, 4
+FLAG_CS, FLAG_AP, FLAG_COAT = 8, 16, 32
+GKIND_SHIFT, NU_SHIFT = 6, 8
+_GKIND_CODES = {"conic": 0, "even": 1, "odd": 2}
+_KERNEL_KINDS = {"standard": "conic", "plane": "conic",
+                 "even_asphere": "even", "odd_asphere": "odd"}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -61,14 +80,25 @@ _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 # ---------------------------------------------------------------------------
 
 def supports_model(model: OpticModel) -> bool:
-    """True if every inner surface is in sub-slice (a): a conic or plane
-    surface (refracting or reflecting), untilted, without a physical
-    aperture, and the stack fits the kernel's flag table."""
+    """True if every inner surface is in the ported sub-slices: a conic,
+    plane, even- or odd-aspheric surface that refracts or reflects, tilted or
+    not, with no aperture or a radial or offset-radial one, no coating or a
+    simple one, at most ``MAX_TERMS`` asphere terms, and the stack fits the
+    kernel's flag table. A Fresnel coating (the polarization chain,
+    sub-slice (e)) is refused."""
     if model.num_surfaces - 1 > MAX_SURFACES:
         return False
-    return all(spec.geometry.kind in ("standard", "plane")
-               and spec.aperture is None and not spec.has_tilt_decenter
-               for spec in model.surfaces[1:])
+    for spec in model.surfaces[1:]:
+        if spec.geometry.kind not in _KERNEL_KINDS:
+            return False
+        if getattr(spec.geometry, "num_terms", 0) > MAX_TERMS:
+            return False
+        if spec.aperture is not None and spec.aperture.kind not in (
+                "radial", "offset_radial"):
+            return False
+        if spec.coating is not None and spec.coating.kind != "simple":
+            return False
+    return True
 
 
 def gen_eligible(model: OpticModel) -> bool:
@@ -83,8 +113,11 @@ def gen_eligible(model: OpticModel) -> bool:
 
 
 def model_flags(model: OpticModel, params=None) -> tuple:
-    """Static (is_plane, is_reflective, absorbing) per inner surface, read
-    from host-side hints only (``Geometry.radius_is_inf``, stamped by
+    """Static flags per inner surface, the JAX package's fields of this
+    scope: (is_plane, is_reflective, absorbing, gkind, nu, has_cs, has_ap,
+    coat) with gkind "conic", "even" or "odd", nu the number of asphere
+    terms and coat "none", "simple" or "fresnel". ``is_plane`` is read from
+    the host-side hint ``Geometry.radius_is_inf`` (stamped by
     ``Optic.build``); a geometry without the hint is read from ``params``."""
     flags = []
     for k in range(1, model.num_surfaces):
@@ -95,14 +128,30 @@ def model_flags(model: OpticModel, params=None) -> tuple:
                 params["surfaces"][k]["geom"]["radius"]).item())
         pre = model.surfaces[k - 1]
         absorbing = model.surfaces[pre.material_src].material.absorbing
+        gkind = _KERNEL_KINDS[spec.geometry.kind]
+        nu = spec.geometry.num_terms if gkind != "conic" else 0
+        coat = "none" if spec.coating is None else spec.coating.kind
         flags.append((bool(is_plane), bool(spec.is_reflective),
-                      bool(absorbing)))
+                      bool(absorbing), gkind, nu,
+                      bool(spec.has_tilt_decenter),
+                      spec.aperture is not None, coat))
     return tuple(flags)
 
 
 def _flag_words(flags) -> list:
-    return [(FLAG_PLANE if p else 0) | (FLAG_REFL if r else 0)
-            | (FLAG_ABSORB if a else 0) for p, r, a in flags]
+    """The kernels' int32 flag word of each surface."""
+    words = []
+    for is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat in flags:
+        if coat not in ("none", "simple") or not 0 <= nu <= MAX_TERMS:
+            raise ValueError(f"no kernel for coating {coat!r} or {nu} terms")
+        words.append((FLAG_PLANE if is_plane else 0)
+                     | (FLAG_REFL if is_refl else 0)
+                     | (FLAG_ABSORB if absorbing else 0)
+                     | (FLAG_CS if has_cs else 0) | (FLAG_AP if has_ap else 0)
+                     | (FLAG_COAT if coat == "simple" else 0)
+                     | (_GKIND_CODES[gkind] << GKIND_SHIFT)
+                     | (nu << NU_SHIFT))
+    return words
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +191,39 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
             params["surfaces"][spec.material_src]["material"], wls)
     alpha = 4.0 * math.pi * mat1.k(mp1, wls) / wls if mat1.absorbing else 0.0
 
+    # column 6: the simple coating's intensity factor
+    coat = 1.0
+    if spec.coating is not None and spec.coating.kind == "simple":
+        coat = spec.coating.intensity_factor(sp["coating"], spec.is_reflective)
+
+    # columns 8-16: the rotation, row-major; 17-19: tx, ty, pos_z + dz
+    if spec.has_tilt_decenter:
+        cs = sp["cs"]
+        rot = list(rotation_matrix(cs["rx"], cs["ry"], cs["rz"]).reshape(-1))
+        tvec = [cs["dx"], cs["dy"], pos[k] + cs["dz"]]
+    else:
+        rot, tvec = [0.0] * 9, [0.0] * 3
+
+    # columns 20-23: r_min^2, r_max^2 and the offset; the double where keeps
+    # an unbounded r_max (inf squared) from putting 0 x inf = NaN into the
+    # extents' cotangent
+    if spec.aperture is not None:
+        ap = sp["aperture"]
+
+        def sq(r):
+            fin = torch.isfinite(r)
+            return torch.where(fin, torch.where(fin, r, 1.0) ** 2, math.inf)
+        apr = [sq(ap["r_min"]), sq(ap["r_max"]), ap.get("offset_x", 0.0),
+               ap.get("offset_y", 0.0)]
+    else:
+        apr = [0.0, math.inf, 0.0, 0.0]
+
     # signed vertex gap (the split-OPD modes read it)
     dz_gap = pos[k] - pos[k - 1]
     dz_gap = torch.where(torch.isfinite(dz_gap), dz_gap, 0.0)
-    # columns 8-19 (rotation, translation) stay zero and 20-23 hold the
-    # no-aperture annulus (0, inf) with no offset: sub-slice (a) surfaces
-    # are untilted and unapertured; 6 (coating factor) is 1
-    cols = ([radius_inv, conic, pos[k], n1, n2, alpha, 1.0, wls]
-            + [0.0] * 12
-            + [0.0, math.inf, 0.0, 0.0, 0.0, 0.0, 0.0, dz_gap, radius_inv_lo,
-               0.0, 0.0, 0.0])
+    cols = ([radius_inv, conic, pos[k], n1, n2, alpha, coat, wls]
+            + rot + tvec + apr
+            + [0.0, 0.0, 0.0, dz_gap, radius_inv_lo, 0.0, 0.0, 0.0])
     return torch.stack([col(v) for v in cols], dim=-1)
 
 
@@ -160,7 +232,8 @@ def pack_surface_constants(model: OpticModel, params, wavelength):
     for a 1-D tensor of W wavelengths (``pallas_trace.py::_pack_rows``), for
     a system ``supports_model`` accepts."""
     if not supports_model(model):
-        raise NotImplementedError("only sub-slice (a) systems are packed")
+        raise NotImplementedError("the system has a surface no ported "
+                                  "sub-slice covers (supports_model)")
     ref = params["surfaces"][0]["thickness"]
     wl = torch.as_tensor(wavelength, dtype=ref.dtype, device=ref.device)
     wls = torch.atleast_1d(wl)
@@ -172,16 +245,30 @@ def pack_surface_constants(model: OpticModel, params, wavelength):
 
 
 def pack_asphere_coeffs(model: OpticModel, params):
-    """float32 [S-1, 8] geometry coefficients. Conic and plane surfaces carry
-    none, so for sub-slice (a) this is the zero table the kernel interface
-    keeps for the freeform sub-slices."""
+    """float32 [S-1, C] geometry coefficients, zero-padded, C at least 8 and
+    a multiple of 8 (``pallas_trace.py::pack_asphere_coeffs``): the even or
+    odd asphere's terms; conic and plane surfaces carry none. The packing is
+    differentiable, so coefficient gradients flow back into the tree."""
     ref = params["surfaces"][0]["thickness"]
-    return torch.zeros((model.num_surfaces - 1, 8), dtype=torch.float32,
-                       device=ref.device)
+    vecs = []
+    for k in range(1, model.num_surfaces):
+        spec = model.surfaces[k]
+        v = None
+        if spec.geometry.kind in ("even_asphere", "odd_asphere") \
+                and spec.geometry.num_terms:
+            v = params["surfaces"][k]["geom"]["coefficients"].to(
+                torch.float32).reshape(-1)
+        vecs.append(v)
+    cmax = max([8] + [v.shape[0] for v in vecs if v is not None])
+    cmax = ((cmax + 7) // 8) * 8
+    zero = torch.zeros((cmax,), dtype=torch.float32, device=ref.device)
+    return torch.stack([zero if v is None else
+                        torch.nn.functional.pad(v, (0, cmax - v.shape[0]))
+                        for v in vecs])
 
 
 def gen_tables(model: OpticModel, params, wavelength, Hx=0.0, Hy=0.0):
-    """(gen [F, 16], consts [W, S-1, 32], acoef [S-1, 8]), all float32,
+    """(gen [F, 16], consts [W, S-1, 32], acoef [S-1, C]), all float32,
     for the fields (Hx, Hy) (scalars or 1-D) and the wavelength(s).
 
     Vignetting folds into the half-EPD terms; the field coordinates are
@@ -235,10 +322,59 @@ def _eps_guard(v):
                                    v.new_tensor(-_EPS)))
 
 
+def _asphere_sag_grad(ri, conic, coefs, odd: bool, xx, yy):
+    """Even or odd asphere sag and its gradient (s, ds/dx, ds/dy) on the
+    curvature-form conic base, in the kernel's operation order
+    (``pallas_trace.py::_asphere_sag_grad``): the conic root's argument is
+    clamped to eps, and the odd asphere's r to sqrt(1e-24) on the axis."""
+    r2 = xx * xx + yy * yy
+    arg = 1.0 - (1.0 + conic) * ri * ri * r2
+    sq = torch.sqrt(torch.where(arg > _EPS, arg, _EPS))
+    s = r2 * ri / (1.0 + sq)
+    inv_sq = torch.reciprocal(sq)
+    gx = xx * ri * inv_sq
+    gy = yy * ri * inv_sq
+    if odd:
+        step = torch.sqrt(torch.clamp(r2, min=1e-24))
+        term, gterm = step, torch.reciprocal(step)
+    else:
+        step = r2
+        term, gterm = r2, torch.ones_like(r2)
+    for i, ci in enumerate(coefs):
+        kk = float(i + 1) if odd else 2.0 * (i + 1)
+        s = s + ci * term
+        gx = gx + kk * xx * ci * gterm
+        gy = gy + kk * yy * ci * gterm
+        term = term * step
+        gterm = gterm * step
+    return s, gx, gy
+
+
+def _newton(t, x, y, z, L, M, N, ri, conic, coefs, odd: bool):
+    """The asphere intersection from the conic warm start ``t``: exactly
+    ``NEWTON_ITERS`` steps without gradient, then one differentiable step,
+    whose gradient is the implicit-function-theorem one (-f_theta / f_t)."""
+    with torch.no_grad():
+        t_it = t.detach()
+        xs, ys, zs, Ls, Ms, Ns, ris, ks = (
+            v.detach() for v in (x, y, z, L, M, N, ri, conic))
+        cs = [c.detach() for c in coefs]
+        for _ in range(NEWTON_ITERS):
+            s, gx, gy = _asphere_sag_grad(ris, ks, cs, odd, xs + t_it * Ls,
+                                          ys + t_it * Ms)
+            f = s - (zs + t_it * Ns)
+            t_it = t_it - f / _eps_guard(gx * Ls + gy * Ms - Ns)
+    s, gx, gy = _asphere_sag_grad(ri, conic, coefs, odd, x + t_it * L,
+                                  y + t_it * M)
+    f = s - (z + t_it * N)
+    return t_it - f / _eps_guard(gx * L + gy * M - N)
+
+
 def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
     """Plain PyTorch K1 on the packed tables: every elementwise operation of
     ``csrc/gen_trace.cu`` in the same order, broadcast over [W, F, n].
-    ``acoef`` is unused by sub-slice (a). Differentiable by autograd."""
+    ``flags`` are ``model_flags``'; ``acoef`` [S, C] holds the asphere
+    terms. Differentiable by autograd (the Newton search is not taped)."""
     W, S = consts.shape[0], consts.shape[1]
     F, n = gen.shape[0], Px.shape[0]
     if len(flags) != S:
@@ -261,11 +397,27 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
     opd = torch.zeros_like(x)
     valid = torch.ones_like(x, dtype=torch.bool)
 
-    for k, (is_plane, is_refl, absorbing) in enumerate(flags):
+    for k, (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap,
+            coat) in enumerate(flags):
         def c(j):                           # per-wavelength constant, [W, 1, 1]
             return consts[:, k, j].reshape(W, 1, 1)
         ri, conic, pos_z, n1, n2, alpha = (c(j) for j in range(6))
-        z = z - pos_z
+        coefs = [acoef[k, i] for i in range(nu)]
+        odd = gkind == "odd"
+
+        # localize: v_local = R^T (v - t)
+        if has_cs:
+            r = [c(8 + j) for j in range(9)]
+            dx0, dy0, dz0 = x - c(17), y - c(18), z - c(19)
+            x = r[0] * dx0 + r[3] * dy0 + r[6] * dz0
+            y = r[1] * dx0 + r[4] * dy0 + r[7] * dz0
+            z = r[2] * dx0 + r[5] * dy0 + r[8] * dz0
+            L, M, N = (r[0] * L + r[3] * M + r[6] * N,
+                       r[1] * L + r[4] * M + r[7] * N,
+                       r[2] * L + r[5] * M + r[8] * N)
+        else:
+            z = z - pos_z
+
         if is_plane:
             t = -z / N
         else:
@@ -285,16 +437,22 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
                              t_near, t_far)
             t = t0 + torch.where(ok, tq, 0.0)
             valid = valid & ok
+        if gkind != "conic":
+            t = _newton(t, x, y, z, L, M, N, ri, conic, coefs, odd)
         x = x + t * L
         y = y + t * M
         z = z + t * N
         opd = opd + torch.abs(t * n1)
         if absorbing:
             inten = inten * torch.exp(-alpha * t * 1e3)
+        if has_ap:                          # intensity mask, local frame
+            xa, ya = x - c(22), y - c(23)
+            r2a = xa * xa + ya * ya
+            inten = inten * ((r2a >= c(20)) & (r2a <= c(21))).to(inten.dtype)
 
-        if is_plane and is_refl:
+        if gkind == "conic" and is_plane and is_refl:
             N = -N
-        elif is_plane:
+        elif gkind == "conic" and is_plane:
             u = n1 / n2
             disc_r = 1.0 - u * u * (1.0 - N * N)
             ok_r = disc_r >= 0
@@ -302,12 +460,15 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
             valid = valid & ok_r
             L, M, N = u * L, u * M, torch.sign(N) * root_r
         else:
-            r2 = x * x + y * y
-            arg = 1.0 - (1.0 + conic) * ri * ri * r2
-            inv_root = torch.reciprocal(torch.sqrt(
-                torch.where(arg > _EPS, arg, 1.0)))
-            dfdx = x * ri * inv_root
-            dfdy = y * ri * inv_root
+            if gkind == "conic":
+                r2 = x * x + y * y
+                arg = 1.0 - (1.0 + conic) * ri * ri * r2
+                inv_root = torch.reciprocal(torch.sqrt(
+                    torch.where(arg > _EPS, arg, 1.0)))
+                dfdx = x * ri * inv_root
+                dfdy = y * ri * inv_root
+            else:                           # the asphere's own slope
+                _, dfdx, dfdy = _asphere_sag_grad(ri, conic, coefs, odd, x, y)
             inv_n = torch.reciprocal(torch.sqrt(dfdx * dfdx + dfdy * dfdy
                                                 + 1.0))
             nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
@@ -323,7 +484,19 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
                 w = torch.sign(dot) * root_r - u * dot
                 L, M, N = u * L + nx * w, u * M + ny * w, u * N + nz * w
                 valid = valid & ok_r
-        z = z + pos_z
+        if coat == "simple":
+            inten = inten * c(6)
+
+        # globalize: v = R v_local + t
+        if has_cs:
+            x, y, z = (r[0] * x + r[1] * y + r[2] * z + c(17),
+                       r[3] * x + r[4] * y + r[5] * z + c(18),
+                       r[6] * x + r[7] * y + r[8] * z + c(19))
+            L, M, N = (r[0] * L + r[1] * M + r[2] * N,
+                       r[3] * L + r[4] * M + r[5] * N,
+                       r[6] * L + r[7] * M + r[8] * N)
+        else:
+            z = z + pos_z
 
     if final_prop:
         t_img = g(6)
@@ -358,13 +531,13 @@ def _find_nvcc() -> str:
 # each library's C entry points: (name, argument types, result type)
 _SIGNATURES = {
     "gen_trace": [
-        ("gen_trace_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        ("gen_trace_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)],
     "gen_grad": [
-        ("gen_grad_partials_size", [ctypes.c_int] * 3 + [ctypes.c_longlong],
-         ctypes.c_longlong),
-        ("gen_grad_launch", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
+         + [ctypes.c_longlong], ctypes.c_longlong),
+        ("gen_grad_launch", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
          ctypes.c_int)],
 }
 
@@ -416,38 +589,54 @@ def build_kernels() -> dict:
         return dict(zip(_SIGNATURES, pool.map(build_kernel, _SIGNATURES)))
 
 
-def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
-    """Launch the CUDA K1 on the current stream; returns [8, W, F, n]
-    float32. Raises on anything the kernel does not take."""
+def check_tables(gen, consts, acoef, Px, Py, flags, **more):
+    """Raise ValueError unless the kernels take these inputs: contiguous
+    float32 CUDA tensors on one device (``more`` names further ones), gen
+    [F, 16], consts [W, S, 32], acoef [S, C] with C at least every surface's
+    asphere terms, Px/Py [n], one flag tuple per surface. Returns (W, S, F,
+    n, C) and the flag words."""
     dev = Px.device
-    for name, t in (("gen", gen), ("consts", consts), ("Px", Px),
-                    ("Py", Py)):
-        if t.device != dev or t.device.type != "cuda":
+    for name, t in (("gen", gen), ("consts", consts), ("acoef", acoef),
+                    ("Px", Px), ("Py", Py), *more.items()):
+        if not isinstance(t, torch.Tensor) or t.device != dev \
+                or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on {dev}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
     W, S = consts.shape[0], consts.shape[1]
     F, n = gen.shape[0], Px.shape[0]
     if (consts.shape[2] != CONST_W or gen.shape[1] != GEN_W
-            or Px.shape != Py.shape or Px.ndim != 1):
+            or Px.shape != Py.shape or Px.ndim != 1 or acoef.ndim != 2
+            or acoef.shape[0] != S):
         raise ValueError("bad table shapes: gen [F, 16], consts [W, S, 32], "
-                         "Px/Py [n]")
+                         "acoef [S, C], Px/Py [n]")
     if len(flags) != S or not 1 <= S <= MAX_SURFACES:
         raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
                          f"each, got {S} surfaces and {len(flags)} flags")
+    if any(f[4] > acoef.shape[1] for f in flags):
+        raise ValueError("acoef has fewer columns than a surface's terms")
     if not (1 <= F <= 65535 and 1 <= W <= 65535):
         raise ValueError("F and W must be in 1..65535")
+    return (W, S, F, n, acoef.shape[1]), _flag_words(flags)
+
+
+def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
+    """Launch the CUDA K1 on the current stream; returns [8, W, F, n]
+    float32. Raises on anything the kernel does not take."""
+    (W, S, F, n, C), words = check_tables(gen, consts, acoef, Px, Py, flags)
+    dev = Px.device
     out = torch.empty((8, W, F, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     lib = build_kernel("gen_trace")
-    words = (ctypes.c_int32 * S)(*_flag_words(flags))
+    words = (ctypes.c_int32 * S)(*words)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.gen_trace_launch(gen.data_ptr(), consts.data_ptr(),
-                                   Px.data_ptr(), Py.data_ptr(),
-                                   out.data_ptr(), ctypes.addressof(words),
-                                   S, F, W, n, int(bool(final_prop)), stream)
+                                   acoef.data_ptr(), Px.data_ptr(),
+                                   Py.data_ptr(), out.data_ptr(),
+                                   ctypes.addressof(words), S, F, W, C, n,
+                                   int(bool(final_prop)), stream)
     if err != 0:
         raise RuntimeError(f"gen_trace kernel launch failed: CUDA error {err}")
     gen_trace_cuda.launches += 1
@@ -483,7 +672,7 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
         raise ValueError(f"K1 has no version for device {px.device}")
     flags = model_flags(model, params)
     gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy)
-    if any(t.requires_grad for t in (gen, consts, px, py)):
+    if any(t.requires_grad for t in (gen, consts, acoef, px, py)):
         from .gen_grad import GenTrace
         out = GenTrace.apply(gen, consts, acoef, px, py, flags, final_prop)
     elif px.device.type == "cpu":

@@ -19,7 +19,7 @@ __all__ = ["Variable", "VariableList", "make_variable", "NOT_PORTED"]
 
 # variable types of the JAX package whose leaves the port's parameter tree
 # does not have yet (ROADMAP.md)
-NOT_PORTED = ("asphere_coeff", "polynomial_coeff", "chebyshev_coeff",
+NOT_PORTED = ("polynomial_coeff", "chebyshev_coeff",
               "zernike_coeff", "norm_radius", "norm_x", "norm_y", "f",
               "grating_period", "grid_sag", "nurbs_ctrlpt",
               "nurbs_control_point", "nurbs_weight", "material")
@@ -92,7 +92,8 @@ def make_variable(model, variable_type: str, surface_number: int = None,
                   scaler=None, min_val=None, max_val=None, **kw) -> Variable:
     """A Variable for a reference-style variable type: radius,
     reciprocal_radius, conic, thickness, index, abbe, decenter_x/y/z and
-    tilt_x/y/z (on surfaces built with a tilt or decenter), or ``path``
+    tilt_x/y/z (on surfaces built with a tilt or decenter), asphere_coeff
+    (``coeff_number=i`` of an even or odd asphere), or ``path``
     (``path=...``, optional ``element=...``). The JAX package's other types
     (``NOT_PORTED``) raise NotImplementedError."""
     t = variable_type
@@ -100,6 +101,9 @@ def make_variable(model, variable_type: str, surface_number: int = None,
         v = Variable(("surfaces", surface_number) + _PATHS[t])
         if t == "reciprocal_radius":
             v.scaler = ReciprocalScaler()
+    elif t == "asphere_coeff":
+        v = Variable(("surfaces", surface_number, "geom", "coefficients"),
+                     element=(kw["coeff_number"],))
     elif t == "path":
         v = Variable(tuple(kw["path"]), element=kw.get("element"))
     elif t in NOT_PORTED:

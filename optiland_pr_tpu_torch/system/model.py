@@ -4,9 +4,10 @@
   models, stop index, field and wavelength counts). Every surface refracts or
   reflects; thin-lens, grating and phase interactions, polarization and
   telecentric launches come with later slices.
-- the parameter tree: every number (radii, conics, thicknesses, material
-  data, field coordinates, wavelengths) as tensors, so autograd flows through
-  all of them.
+- the parameter tree: every number (radii, conics, asphere coefficients,
+  thicknesses, material data, aperture extents, coating factors, tilts and
+  decenters, field coordinates, wavelengths) as tensors, so autograd flows
+  through all of them.
 
 Surface positions derive from thicknesses (a cumulative sum), so a thickness
 gradient moves every downstream surface.
@@ -14,6 +15,7 @@ gradient moves every downstream surface.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ class SurfaceDef:
     has_tilt_decenter: bool = False
     is_object: bool = False
     is_image: bool = False
+    coating: Any = None                # CoatingDef | None
     comment: str = ""
 
 
@@ -94,6 +97,8 @@ def make_surface_params(spec: SurfaceDef, thickness, geom_kw: dict,
     }
     if spec.aperture is not None:
         p["aperture"] = aperture_params
+    if spec.coating is not None:
+        p["coating"] = spec.coating.default_params()
     if spec.has_tilt_decenter:
         p["cs"] = {k: float(cs_kw.get(k, 0.0))
                    for k in ("dx", "dy", "dz", "rx", "ry", "rz")}

@@ -1,5 +1,6 @@
 """The user-facing system builder (port of ``optiland_pr_tpu/system/optic.py``
-for standard and plane surfaces that refract or reflect).
+for standard, plane and even/odd aspheric surfaces that refract or reflect,
+with radial apertures, simple coatings and tilts/decenters).
 
 ``Optic`` is a mutable host-side builder; ``build(device, dtype)`` compiles it
 into a static ``OpticModel`` and a parameter tree of tensors on ``device``.
@@ -13,20 +14,24 @@ import numpy as np
 
 from ..config import default_float, resolve_device
 from ..core.distributions import generate_distribution
-from ..geometry import Plane, StandardGeometry
+from ..geometry import EvenAsphere, OddAsphere, Plane, StandardGeometry
 from ..materials import resolve_material
 from ..materials.base import Mirror
 from ..trace.paraxial import Paraxial
 from ..utils.convert import params_from_numpy
 from ..utils.hostvals import host_isinf
 from .apertures import configure_aperture
+from .coatings import FresnelCoating
 from .model import OpticModel, SurfaceDef, make_surface_params
 
 __all__ = ["Optic"]
 
 _GEOMETRY_BUILDERS = {
-    "standard": StandardGeometry,
-    "plane": Plane,
+    "standard": lambda kw: StandardGeometry(),
+    "plane": lambda kw: Plane(),
+    "even_asphere": lambda kw: EvenAsphere(len(kw.get("coefficients")
+                                               or [])),
+    "odd_asphere": lambda kw: OddAsphere(len(kw.get("coefficients") or [])),
 }
 
 
@@ -62,18 +67,22 @@ class Optic:
                     surface_type: str = "standard", radius=math.inf,
                     thickness=0.0, conic=0.0, material=None,
                     is_stop: bool = False, comment: str = "", dx=0.0, dy=0.0,
-                    dz=0.0, rx=0.0, ry=0.0, rz=0.0, aperture=None, **geom_kw):
-        """Add (or insert) a surface. Only ``standard`` and ``plane``
-        surface types are ported; others raise at ``build``."""
+                    dz=0.0, rx=0.0, ry=0.0, rz=0.0, aperture=None,
+                    coating=None, **geom_kw):
+        """Add (or insert) a surface. The ported surface types are
+        ``standard``, ``plane``, ``even_asphere`` and ``odd_asphere`` (with
+        ``coefficients=[...]``); others raise at ``build``. ``coating`` is a
+        ``CoatingDef`` or ``"fresnel"``."""
         entry = dict(surface_type=surface_type, radius=radius,
                      thickness=thickness, conic=conic, material=material,
                      is_stop=is_stop, comment=comment, dx=dx, dy=dy, dz=dz,
-                     rx=rx, ry=ry, rz=rz, aperture=aperture, geom_kw=geom_kw)
+                     rx=rx, ry=ry, rz=rz, aperture=aperture, coating=coating,
+                     geom_kw=geom_kw)
         if index is None or index == len(self._surfaces):
             self._surfaces.append(entry)
         else:
             self._surfaces.insert(index, entry)
-        self._cache = {}
+        self._dirty()
         return self
 
     def set_aperture(self, aperture_type: str, value: float):
@@ -82,19 +91,19 @@ class Optic:
             raise ValueError(f"unknown aperture type {aperture_type}")
         self.ap_type = aperture_type
         self.ap_value = float(value)
-        self._cache = {}
+        self._dirty()
 
     def set_field_type(self, field_type: str):
         if field_type not in ("angle", "object_height",
                               "paraxial_image_height"):
             raise ValueError(f"unknown field type {field_type}")
         self.field_type = field_type
-        self._cache = {}
+        self._dirty()
 
     def add_field(self, y: float, x: float = 0.0, vx: float = 0.0,
                   vy: float = 0.0):
         self.fields.append((float(x), float(y), float(vx), float(vy)))
-        self._cache = {}
+        self._dirty()
 
     def add_wavelength(self, value: float, is_primary: bool = False,
                        unit: str = "um"):
@@ -102,6 +111,54 @@ class Optic:
         self.wavelengths.append(float(value) * scale)
         if is_primary or len(self.wavelengths) == 1:
             self.primary_wavelength_idx = len(self.wavelengths) - 1
+        self._dirty()
+
+    # -- prescription edits -------------------------------------------------
+    def set_radius(self, value, surface_number: int):
+        self._surfaces[surface_number]["radius"] = float(value)
+        self._surfaces[surface_number]["geom_kw"].pop("radius", None)
+        self._dirty()
+
+    def set_conic(self, value, surface_number: int):
+        self._surfaces[surface_number]["conic"] = float(value)
+        self._surfaces[surface_number]["geom_kw"].pop("conic", None)
+        self._dirty()
+
+    def set_thickness(self, value, surface_number: int):
+        self._surfaces[surface_number]["thickness"] = float(value)
+        self._dirty()
+
+    def set_asphere_coeff(self, value, surface_number: int,
+                          aspher_coeff_idx: int):
+        """Set one aspheric coefficient, extending the list with zeros."""
+        kw = self._surfaces[surface_number]["geom_kw"]
+        coeffs = list(kw.get("coefficients") or [])
+        while len(coeffs) <= aspher_coeff_idx:
+            coeffs.append(0.0)
+        coeffs[aspher_coeff_idx] = float(value)
+        kw["coefficients"] = coeffs
+        self._dirty()
+
+    def scale_system(self, scale_factor: float):
+        """Scale every length by ``scale_factor``: finite radii and
+        thicknesses, the EPD (or float-by-stop-size) aperture value and every
+        physical-aperture dimension. Aspheric coefficients are left as they
+        are, as in the JAX package."""
+        for e in self._surfaces:
+            if math.isfinite(float(e["radius"])):
+                e["radius"] = float(e["radius"]) * scale_factor
+            if math.isfinite(float(e["thickness"])):
+                e["thickness"] = float(e["thickness"]) * scale_factor
+            if e.get("aperture") is not None:
+                ap_def, ap_params = configure_aperture(e["aperture"])
+                e["aperture"] = (ap_def, {k: v * scale_factor
+                                          for k, v in ap_params.items()})
+        if self.ap_type in ("EPD", "float_by_stop_size"):
+            self.ap_value *= scale_factor
+        self._dirty()
+
+    def _dirty(self):
+        """Drop every cached build after an edit."""
         self._cache = {}
 
     # ------------------------------------------------------------------
@@ -128,7 +185,7 @@ class Optic:
             gkw = dict(e["geom_kw"])
             gkw.setdefault("radius", e["radius"])
             gkw.setdefault("conic", e["conic"])
-            geometry = _GEOMETRY_BUILDERS[e["surface_type"]]()
+            geometry = _GEOMETRY_BUILDERS[e["surface_type"]](gkw)
             # the inf-ness of a radius is structure: read it from the host
             # input, never from a device tensor
             geometry.radius_is_inf = host_isinf(gkw.get("radius"), False)
@@ -144,6 +201,11 @@ class Optic:
                 material_src = last_material_src = k
 
             ap_def, ap_params = configure_aperture(e["aperture"])
+            coating = e["coating"]
+            if isinstance(coating, str):
+                if coating.lower() != "fresnel":
+                    raise ValueError(f"unknown coating spec {coating!r}")
+                coating = FresnelCoating()
             has_td = any(float(e[kk]) != 0.0
                          for kk in ("dx", "dy", "dz", "rx", "ry", "rz"))
             spec = SurfaceDef(
@@ -154,7 +216,8 @@ class Optic:
                 material_src=material_src, is_reflective=is_reflective,
                 is_stop=bool(e["is_stop"]), aperture=ap_def,
                 has_tilt_decenter=has_td, is_object=k == 0,
-                is_image=k == len(self._surfaces) - 1, comment=e["comment"])
+                is_image=k == len(self._surfaces) - 1, coating=coating,
+                comment=e["comment"])
             specs.append(spec)
             cs_kw = {kk: e[kk] for kk in ("dx", "dy", "dz", "rx", "ry", "rz")}
             sparams.append(make_surface_params(spec, e["thickness"], gkw,

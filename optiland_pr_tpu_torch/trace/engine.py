@@ -2,10 +2,13 @@
 (port of ``optiland_pr_tpu/trace/engine.py``).
 
 Every spot, operand and analysis call asks ``final_rays`` for the final ray
-state. On a CUDA device, ``"auto"`` sends every eligible call to the K1 kernel
-(``kernels/gen_trace.py``), whose gradient is the K2 kernel
-(``kernels/gen_grad.py``): a merit's gradient through such a call runs K2 on
-the card, never the eager trace. Everything else runs the eager trace
+state. Eligible systems are those ``supports_model`` accepts: conic, plane
+and even/odd aspheric surfaces, tilted or not, with radial or offset-radial
+apertures and simple coatings (the Hubble telescope and the aspheric singlet
+among them). On a CUDA device, ``"auto"`` sends every eligible call to the
+K1 kernel (``kernels/gen_trace.py``), whose gradient is the K2 kernel
+(``kernels/gen_grad.py``): a merit's gradient through such a call runs K2
+on the card, never the eager trace. Everything else runs the eager trace
 (``trace/real.py``), which works on any device and is differentiable by
 autograd. The JAX package's ``_PALLAS_MIN_RAYS`` crossover was measured on a
 TPU and is not carried over.

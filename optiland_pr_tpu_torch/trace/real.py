@@ -82,6 +82,13 @@ def trace_surface(model: OpticModel, params, k: int, rays: R.Rays,
         rays, ok_i = R.refract(rays, nx, ny, nz, n1, mat2.n(mp2, wl))
     valid = valid & ok_i
 
+    # scalar intensity coating, after the interaction; a polarization-
+    # dependent coating acts on the polarization chain, which is not ported
+    coating = spec.coating
+    if coating is not None and not coating.polarization_dependent:
+        factor = coating.intensity_factor(sp["coating"], spec.is_reflective)
+        rays = rays.replace(intensity=rays.intensity * factor)
+
     if spec.has_tilt_decenter:
         x, y, z, L, M, N = globalize(Rm, cs["dx"], cs["dy"], tz + cs["dz"],
                                      rays.x, rays.y, rays.z,

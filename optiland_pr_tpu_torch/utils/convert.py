@@ -2,9 +2,14 @@
 
 ``Optic.build()`` in both packages produces the same nested structure: a dict
 with a ``surfaces`` list of per-surface dicts and the system arrays
-(``aperture_value``, ``fields``, ``vig``, ``wavelengths``). This module turns a
-host copy of such a tree (numpy arrays and Python numbers, e.g. the JAX tree
-mapped with ``np.asarray``) into tensors.
+(``aperture_value``, ``fields``, ``vig``, ``wavelengths``). A surface's dict
+holds its thickness, its ``geom`` leaves (radius, conic and an asphere's
+``coefficients`` array), its ``material`` leaves and, where the surface has
+them, its ``aperture`` extents and offsets, its ``coating`` factors and its
+``cs`` tilts and decenters. This module turns a host copy of such a tree
+(numpy arrays and Python numbers, e.g. the JAX tree mapped with
+``np.asarray``) into tensors and back; it carries weights between the two
+packages, leaf for leaf.
 """
 from __future__ import annotations
 

@@ -2,11 +2,12 @@
 
 - K2's plain version (autograd through K1's plain version) against
   ``jax.vjp`` of the JAX custom_vjp ``diff_gen_trace``, whose backward is the
-  Pallas K2 run in interpret mode, on the JAX package's own tables and flags,
-  with the same numpy-seeded cotangents: dgen, dconsts columns 0-5, dPx and
-  dPy at rtol 3e-3 with atol 3e-3 x max|g| (float32; the JAX suite's
-  gradient tolerances, tests/test_pallas_grad.py:45-76). Both put no
-  cotangent on any other consts column.
+  Pallas K2 run in interpret mode (traced once, for both cases), on the JAX
+  package's own tables and flags, with the same numpy-seeded cotangents:
+  dgen, dconsts columns 0-5, dPx and dPy at rtol 3e-3 with atol
+  3e-3 x max|g| (float32; the JAX suite's gradient tolerances,
+  tests/test_pallas_grad.py:45-76). Both put no cotangent on any other
+  consts column.
 - ``GenTrace`` on CPU tensors against direct autograd of the plain version:
   the same computation, so equal bit for bit.
 - Lost rays: NaN cotangents on the masked outputs of rays lost to TIR give 0
@@ -25,10 +26,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import optiland_pr_tpu.kernels.pallas_trace as jpt
 import optiland_pr_tpu_torch.kernels.gen_trace as tgt
 import optiland_pr_tpu_torch.samples.objectives as tobj
 from _torch_systems import builders as _builders
+from _torch_systems import jax_flags_as_port, jax_tables
 from optiland_pr_tpu.kernels.pallas_grad import diff_gen_trace
 from optiland_pr_tpu.samples.objectives import CookeTriplet as JCooke
 from optiland_pr_tpu.trace import real as j_real
@@ -52,49 +53,29 @@ def _f32(params):
                                   params)
 
 
-class _Captured(Exception):
-    pass
-
-
 def _jax_tables(name, wls, fields):
-    """The (gen, consts, acoef, flags) the JAX entry point hands its kernel;
-    the capture stops the call before the kernel runs."""
-    jb, _ = _builders(name)
-    model, params = jb().build()
-    seen = {}
-
-    def capture(gen, consts, acoef, Px, Py, **kw):
-        seen.update(gen=gen, consts=consts, acoef=acoef, flags=kw["flags"])
-        raise _Captured
-
-    orig = jpt._pallas_gen_trace_2d
-    jpt._pallas_gen_trace_2d = capture
-    try:
-        jpt.pallas_gen_trace_conic(
-            model, _f32(params), jnp.zeros(128, jnp.float32),
-            jnp.zeros(128, jnp.float32), jnp.asarray(wls, jnp.float32),
-            Hx=jnp.zeros(len(fields), jnp.float32),
-            Hy=jnp.asarray(fields, jnp.float32), final_prop=True)
-    except _Captured:
-        pass
-    finally:
-        jpt._pallas_gen_trace_2d = orig
-    return seen
+    jm, jp = _builders(name)[0]().build()
+    return jax_tables(jm, jp, wls, fields)
 
 
-def _jax_k2(tables, px, py, cot, block_rows):
-    """jax.vjp of diff_gen_trace (the Pallas K2 in interpret mode)."""
+def _jax_k2(tables, px, py, cots, block_rows):
+    """jax.vjp of diff_gen_trace (the Pallas K2 in interpret mode) for each
+    cotangent set in ``cots``; the interpreted kernel is traced once and
+    every further set reuses it."""
     n = px.shape[0]
     rows = n // 128
     f = diff_gen_trace(tables["flags"], block_rows, True, True, False)
     _, vjp = jax.vjp(f, tables["gen"], tables["consts"], tables["acoef"],
                      jnp.asarray(px).reshape(rows, 128),
                      jnp.asarray(py).reshape(rows, 128))
-    W, F = cot.shape[1], cot.shape[2]
-    cots = tuple(jnp.asarray(c.reshape(W, F, rows, 128)) for c in cot)
-    dgen, dconsts, dacoef, dpx, dpy = vjp(cots)
-    return [np.asarray(a) for a in (dgen, dconsts, dacoef)] + [
-        np.asarray(dpx).reshape(-1), np.asarray(dpy).reshape(-1)]
+    out = []
+    for cot in cots:
+        W, F = cot.shape[1], cot.shape[2]
+        dgen, dconsts, dacoef, dpx, dpy = vjp(tuple(
+            jnp.asarray(c.reshape(W, F, rows, 128)) for c in cot))
+        out.append([np.asarray(a) for a in (dgen, dconsts, dacoef)] + [
+            np.asarray(dpx).reshape(-1), np.asarray(dpy).reshape(-1)])
+    return out
 
 
 def _close(got, exp, what):
@@ -105,27 +86,36 @@ def _close(got, exp, what):
 
 @pytest.fixture(scope="module")
 def k2_cases():
-    """(tables, pupil, cotangents, JAX K2 result) for the Cooke triplet at
-    1 x 1 with 256 samples and 3 x 3 with 128 samples."""
-    out = {}
-    for label, wls, fields, n in (("1x1", [0.55], [0.7], 256),
-                                  ("3x3", [0.48, 0.55, 0.65],
-                                   [0.0, 0.7, 1.0], 128)):
-        tables = _jax_tables("CookeTriplet", wls, fields)
-        px, py = _pupil(n, seed=3)
-        W, F = tables["consts"].shape[0], tables["gen"].shape[0]
-        rng = np.random.default_rng(11)
-        cot = rng.normal(size=(8, W, F, n)).astype(np.float32)
-        out[label] = (tables, px, py, cot,
-                      _jax_k2(tables, px, py, cot, block_rows=n // 128))
-    return out
+    """(tables, pupil, cotangents, JAX K2 result) for the steep N-SF11
+    singlet (conic and plane refraction, absorption, rays lost to TIR at the
+    outer fields; three surfaces keep the interpreted kernel's trace short)
+    at 3 x 3 (wavelengths 0.48, 0.55, 0.65 um; fields 0, 0.7, 1) with 256
+    samples, and the 1 x 1 case (0.55 um, Hy 0.7) of the same run with the
+    other (wavelength, field) cotangents zero. The port's 1 x 1 case runs on
+    that (wavelength, field)'s tables alone; the JAX gradients of the other
+    fields and wavelengths are then 0, which it checks too."""
+    n = 256
+    tables = _jax_tables("TIRSinglet", [0.48, 0.55, 0.65], [0.0, 0.7, 1.0])
+    px, py = _pupil(n, seed=3)
+    rng = np.random.default_rng(11)
+    cot = rng.normal(size=(8, 3, 3, n)).astype(np.float32)
+    one = np.zeros_like(cot)
+    one[:, 1, 1] = cot[:, 1, 1]
+    full, single = _jax_k2(tables, px, py, (cot, one), block_rows=n // 128)
+    sub = dict(tables, gen=tables["gen"][1:2], consts=tables["consts"][1:2])
+    return {"3x3": (tables, px, py, cot, full),
+            "1x1": (sub, px, py, cot[:, 1:2, 1:2], [
+                single[0][1:2], single[1][1:2]] + single[2:]),
+            "1x1 others": [single[0][[0, 2]], single[1][[0, 2]]]}
 
 
 @pytest.mark.parametrize("case", ["1x1", "3x3"])
 def test_plain_k2_matches_jax_k2(case, k2_cases):
     tables, px, py, cot, (jdgen, jdconsts, jdacoef, jdpx, jdpy) = \
         k2_cases[case]
-    flags = tuple(tuple(f[:3]) for f in tables["flags"])
+    if case == "1x1":
+        assert not any(np.any(g) for g in k2_cases["1x1 others"])
+    flags = jax_flags_as_port(tables["flags"])
     t = [torch.tensor(np.asarray(tables[k]))
          for k in ("gen", "consts", "acoef")]
     dgen, dconsts, dacoef, dpx, dpy = gen_trace_bwd_plain(
@@ -267,28 +257,42 @@ def test_polychromatic_gradient_matches_jax():
 
 
 @pytest.mark.parametrize("fault", [None, "dgen", "dconsts", "dPx", "nan",
-                                   "dacoef"])
+                                   "dacoef", "float64_floor"])
 def test_chip_smoke_grad_comparison(fault):
-    """The K2-vs-plain check of chip_smoke.py: equal gradients pass, and a
-    fault just outside each tolerance is caught."""
-    from chip_smoke import GRAD_TOL, compare_grads
-    gen, consts, acoef, flags = _port_tables(tobj.CookeTriplet, [0.0, 1.0])
+    """The K2-vs-plain check of chip_smoke.py, on the aspheric singlet (its
+    asphere terms get cotangents): equal gradients pass, a fault just
+    outside each tolerance is caught, and a float64 reference whose distance
+    from the float32 plain version exceeds a tolerance widens that atol to
+    twice the distance (and no further)."""
+    from chip_smoke import GRAD_NAMES, GRAD_TOL, compare_grads
+    from optiland_pr_tpu_torch.samples import AsphericSinglet
+    gen, consts, acoef, flags = _port_tables(AsphericSinglet, [0.0, 1.0])
     px, py = (torch.tensor(a) for a in _pupil(128, seed=9))
     cot = torch.ones((8, consts.shape[0], gen.shape[0], 128))
     ref = gen_trace_bwd_plain(gen, consts, acoef, px, py, cot, flags, True)
+    assert torch.count_nonzero(ref[2]) == 3
     bad = [t.clone() for t in ref]
-    if fault in ("dgen", "dconsts", "dPx"):
-        i = {"dgen": 0, "dconsts": 1, "dPx": 3}[fault]
-        rtol, share = GRAD_TOL[fault]
+    i = {"dgen": 0, "dconsts": 1, "dacoef": 2, "dPx": 3,
+         "float64_floor": 3}.get(fault)
+    if i is not None:
+        rtol, share = GRAD_TOL[GRAD_NAMES[i]]
         flat = bad[i].reshape(-1)
         j = int(torch.argmax(flat.abs()))
-        flat[j] += 1.01 * (share + rtol) * flat[j].abs() + 1e-30
+        grow = 10.0 if fault == "float64_floor" else 1.01
+        flat[j] += grow * (share + rtol) * flat[j].abs() + 1e-30
     elif fault == "nan":
         bad[4].reshape(-1)[0] = torch.nan
-    elif fault == "dacoef":
-        bad[2].reshape(-1)[0] = 1e-30
     if fault is None:
         assert compare_grads(bad, ref, "same") == 0.0
+    elif fault == "float64_floor":
+        # a float32 error of 0.6 x the fault against float64 covers it ...
+        ref64 = [t.double() for t in ref]
+        ref64[3] = ref64[3] + 0.6 * (bad[3] - ref[3]).double()
+        compare_grads(bad, ref, fault, ref64=ref64)
+        # ... and one of 0.4 x does not
+        ref64[3] = ref[3].double() + 0.4 * (bad[3] - ref[3]).double()
+        with pytest.raises(RuntimeError, match="check failed"):
+            compare_grads(bad, ref, fault, ref64=ref64)
     else:
         with pytest.raises(RuntimeError, match="check failed"):
             compare_grads(bad, ref, fault)

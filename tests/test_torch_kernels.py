@@ -25,6 +25,7 @@ import optiland_pr_tpu.kernels.pallas_trace as jpt
 import optiland_pr_tpu_torch.kernels.gen_trace as tgt
 import optiland_pr_tpu_torch.samples.objectives as tobj
 from _torch_systems import builders as _builders
+from _torch_systems import jax_flags_as_port
 from optiland_pr_tpu_torch.system.optic import Optic as TOptic
 from optiland_pr_tpu_torch.trace.engine import (engine_override, final_rays,
                                                 kernel_eligible, resolve_engine)
@@ -80,7 +81,7 @@ def _jax_k1(name, n_rays, fields, block_rows=4, seed=7):
 def jax_k1():
     """JAX K1 runs shared by the tests below (interpreted Pallas is slow)."""
     return {
-        "CookeTriplet": _jax_k1("CookeTriplet", 1024, [0.0, 0.7, 1.0]),
+        "CookeTriplet": _jax_k1("CookeTriplet", 512, [0.0, 0.7, 1.0]),
         "DoubleGauss": _jax_k1("DoubleGauss", 256, [0.0, 0.7, 1.0]),
         "TIRSinglet": _jax_k1("TIRSinglet", 512, [0.0, 1.0]),
     }
@@ -105,8 +106,9 @@ def test_model_flags_match_jax(name, jax_k1):
     model, params = tb().build(device="cpu")
     ours = tgt.model_flags(model, params)
     theirs = jax_k1[name]["flags"]
-    assert ours == tuple(tuple(f[:3]) for f in theirs)
-    # the rest of the JAX flags are the defaults of sub-slice (a)
+    assert ours == jax_flags_as_port(theirs)
+    # sub-slice (a) systems: no sag kind, transform, aperture or coating,
+    # and the JAX fields the port does not carry are their defaults
     for f in theirs:
         assert f[3:] == ("conic", 0, 0, False, False, "none", None, None)
 
@@ -152,7 +154,7 @@ def test_plain_k1_matches_interpreted_pallas(name, jax_k1):
     out_j = tgt.gen_trace_plain(torch.tensor(ref["gen"]),
                                 torch.tensor(ref["consts"]),
                                 torch.tensor(ref["acoef"]), px, py,
-                                tuple(tuple(f[:3]) for f in ref["flags"]),
+                                jax_flags_as_port(ref["flags"]),
                                 final_prop=True)
     _hold(out_j, ref["rays"], W, F, n)
     model, params, gen, consts, acoef = _port_tables(name, ref)
@@ -206,10 +208,12 @@ def test_engine_routing_on_cpu():
 
 
 def test_ineligible_systems_are_refused():
+    """A Fresnel coating (the polarization chain, a later sub-slice) keeps a
+    system off the kernel; the aperture and the tilt no longer do."""
     lens = TOptic()
     lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
     lens.add_surface(index=1, radius=20.0, thickness=3.0, material="N-BK7",
-                     is_stop=True, aperture=8.0)
+                     is_stop=True, aperture=8.0, coating="fresnel")
     lens.add_surface(index=2, radius=-20.0, thickness=30.0, ry=0.01)
     lens.add_surface(index=3)
     lens.set_aperture("EPD", 5.0)

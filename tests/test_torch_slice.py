@@ -18,6 +18,9 @@ import optiland_pr_tpu.samples.objectives as jobj
 import optiland_pr_tpu_torch.samples.objectives as tobj
 from optiland_pr_tpu.analysis.spot import encircled_energy as j_ee
 from optiland_pr_tpu.analysis.spot import spot_diagram as j_spot
+from optiland_pr_tpu.core.distributions import \
+    generate_distribution as j_generate_distribution
+from optiland_pr_tpu.trace import real as j_real
 from optiland_pr_tpu.trace.engine import engine_override as j_engine
 from optiland_pr_tpu_torch.analysis.spot import encircled_energy as t_ee
 from optiland_pr_tpu_torch.analysis.spot import spot_diagram as t_spot
@@ -78,10 +81,15 @@ def test_spot_through_kernel_plain_version_matches_eager(spots):
 @pytest.mark.parametrize("name", ["TripletTelescopeObjective",
                                   "ReverseTelephoto", "TessarLens"])
 def test_other_conic_samples_match_jax(name):
+    """``Optic.trace`` against the JAX package's XLA trace of the same
+    hexapolar pupil (its ``Optic.trace`` without the jit, whose whole-trace
+    compile costs more than the comparison)."""
     jlens = getattr(jobj, name)()
     tlens = getattr(tobj, name)()
+    jm, jp = jlens.build()
+    px, py = j_generate_distribution("hexapolar", 4)
     for hy in (0.0, 1.0):
-        rj = jlens.trace(Hy=hy, num_rays=4, engine="xla")
+        rj = j_real.trace(jm, jp, 0.0, hy, jlens.primary_wavelength, px, py)
         rt = tlens.trace(Hy=hy, num_rays=4, engine="eager",
                          device="cpu")
         for f in ("x", "y", "z"):
@@ -92,8 +100,10 @@ def test_other_conic_samples_match_jax(name):
 
 
 def test_port_never_imports_jax():
-    """Build, trace and spot the Cooke triplet with the port in a fresh
-    interpreter (this test process has JAX loaded by conftest.py)."""
+    """Build, trace and spot the Cooke triplet, the Hubble telescope and the
+    aspheric singlet (the asphere, coating and aperture modules) with the
+    port in a fresh interpreter (this test process has JAX loaded by
+    conftest.py)."""
     code = (
         "import sys\n"
         "from optiland_pr_tpu_torch.samples import CookeTriplet\n"
@@ -109,6 +119,14 @@ def test_port_never_imports_jax():
         "with engine_override('kernel'):\n"
         "    s = spot_diagram(model, params, num_rays=3)\n"
         "assert s.rms_spot_radius().shape == (3, 3)\n"
+        "import optiland_pr_tpu_torch.geometry.aspheres\n"
+        "import optiland_pr_tpu_torch.system.coatings\n"
+        "from optiland_pr_tpu_torch.samples import (AsphericSinglet,\n"
+        "                                           HubbleTelescope)\n"
+        "with engine_override('kernel'):\n"
+        "    for lens in (HubbleTelescope(), AsphericSinglet()):\n"
+        "        s = spot_diagram(*lens.build(device='cpu'), num_rays=3)\n"
+        "        assert s.rms_spot_radius().isfinite().all()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('optiland_pr_tpu.') "
         "or m == 'optiland_pr_tpu')\n"

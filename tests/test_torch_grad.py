@@ -16,7 +16,8 @@
   (plain K1 and K2, float32) against ``jax.value_and_grad`` of the JAX XLA
   trace, leaf by leaf (rtol 3e-3, atol 3e-3 x max|g|, as
   test_grad_parity_polychromatic).
-- ``chip_smoke.compare_grads``, the K2 check on the card, on plain outputs.
+- ``chip_smoke.compare_grads`` and ``float32_floor``, the K2 check on the
+  card, on plain outputs.
 The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py.
 """
 import numpy as np
@@ -261,9 +262,8 @@ def test_polychromatic_gradient_matches_jax():
 def test_chip_smoke_grad_comparison(fault):
     """The K2-vs-plain check of chip_smoke.py, on the aspheric singlet (its
     asphere terms get cotangents): equal gradients pass, a fault just
-    outside each tolerance is caught, and a float64 reference whose distance
-    from the float32 plain version exceeds a tolerance widens that atol to
-    twice the distance (and no further)."""
+    outside each tolerance is caught, and a per-ray float32 floor widens
+    that ray's bound by twice the floor, and no other ray's."""
     from chip_smoke import GRAD_NAMES, GRAD_TOL, compare_grads
     from optiland_pr_tpu_torch.samples import AsphericSinglet
     gen, consts, acoef, flags = _port_tables(AsphericSinglet, [0.0, 1.0])
@@ -285,14 +285,46 @@ def test_chip_smoke_grad_comparison(fault):
     if fault is None:
         assert compare_grads(bad, ref, "same") == 0.0
     elif fault == "float64_floor":
-        # a float32 error of 0.6 x the fault against float64 covers it ...
-        ref64 = [t.double() for t in ref]
-        ref64[3] = ref64[3] + 0.6 * (bad[3] - ref[3]).double()
-        compare_grads(bad, ref, fault, ref64=ref64)
-        # ... and one of 0.4 x does not
-        ref64[3] = ref[3].double() + 0.4 * (bad[3] - ref[3]).double()
-        with pytest.raises(RuntimeError, match="check failed"):
-            compare_grads(bad, ref, fault, ref64=ref64)
+        # a floor of 0.6 x the fault on the faulted ray covers it ...
+        size = float((bad[3] - ref[3]).abs().max())
+        floor = [None] * 3 + [torch.zeros_like(ref[3]), None]
+        floor[3].reshape(-1)[j] = 0.6 * size
+        compare_grads(bad, ref, fault, floor=floor)
+        # ... one of 0.4 x does not, nor one of 0.6 x on every other ray
+        for on_j, elsewhere in ((0.4, 0.0), (0.0, 0.6)):
+            floor[3] = torch.full_like(ref[3], elsewhere * size)
+            floor[3].reshape(-1)[j] = on_j * size
+            with pytest.raises(RuntimeError, match="check failed"):
+                compare_grads(bad, ref, fault, floor=floor)
     else:
         with pytest.raises(RuntimeError, match="check failed"):
             compare_grads(bad, ref, fault)
+
+
+def test_chip_smoke_float32_floor():
+    """chip_smoke.float32_floor on the benchtop Hubble, the K2 case that
+    uses it: a per-ray floor for dPx and dPy only, nonzero (a two-mirror
+    telescope's pupil cotangents are small differences of large terms) and
+    under 1e-3 x max|g| on every ray. With it, the plain version run again
+    with its backward rounded anew passes compare_grads, and an error of 1%
+    on every hundredth ray does not."""
+    from chip_smoke import benchtop_hubble, compare_grads, float32_floor
+    gen, consts, acoef, flags = _port_tables(benchtop_hubble, [0.0, 1.0])
+    n = 4_000
+    px, py = (torch.tensor(a) for a in _pupil(n, seed=5))
+    cot = torch.tensor(np.random.default_rng(2).normal(
+        size=(8, 1, 2, n)).astype(np.float32))
+    ref = gen_trace_bwd_plain(gen, consts, acoef, px, py, cot, flags, True)
+    floor = float32_floor(gen, consts, acoef, px, py, cot, flags, True, ref)
+    assert floor[:3] == [None] * 3
+    for f, p in zip(floor[3:], ref[3:]):
+        assert f.shape == p.shape and f.dtype == p.dtype
+        assert 0.0 < float(f.max()) < 1e-3 * float(p.abs().max())
+    d = 1.0 - 5 * 2.0 ** -22                 # not one of the floor's scales
+    again = [t if t is None else (t.double() / d).to(t.dtype) for t in
+             gen_trace_bwd_plain(gen, consts, acoef, px, py, cot * d, flags,
+                                 True)]
+    compare_grads(again, ref, "re-rounded", floor)
+    again[3].reshape(-1)[::100] *= 1.01
+    with pytest.raises(RuntimeError, match="dPx exceeds"):
+        compare_grads(again, ref, "1% off", floor)

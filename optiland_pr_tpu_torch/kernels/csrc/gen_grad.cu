@@ -1,6 +1,11 @@
-// K2, sub-slices (a), (b) and the even/odd aspheres of (c): the
-// vector-Jacobian product of K1 (gen_trace.cu) by per-ray recompute and a
-// per-surface reverse sweep, one ray per thread.
+// K2, sub-slices (a), (b), the even/odd aspheres of (c) and the OPD modes
+// of (g): the vector-Jacobian product of K1 (gen_trace.cu) by per-ray
+// recompute and a per-surface reverse sweep, one ray per thread.
+//
+// One library per OPD mode: this file builds the plain mode's, and
+// gen_grad_kahan.cu and gen_grad_split.cu include it with GRAD_MODE set to
+// OPD_KAHAN and OPD_SPLIT. Each library holds its mode's 8 template
+// instances, and the three build in parallel.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_grad.py::
 // _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic, plane
@@ -20,14 +25,21 @@
 //     step is, so the cotangent is the implicit-function-theorem one, and
 //     the conic warm start gets none;
 //   - the aperture mask passes the intensity cotangent inside and none
-//     outside, and gives the aperture extents none.
+//     outside, and gives the aperture extents none;
+//   - the Kahan update (opd, opd_c) <- (opd + (v - opd_c), ((opd + (v -
+//     opd_c)) - opd) - (v - opd_c)) is linear: with g, gc the cotangents of
+//     the new opd and opd_c, the sum's gtk = g + gc, and opd, v and opd_c
+//     get gtk - gc, gtk - gc and -(gtk - gc), as autograd forms them;
+//   - the split mode's sag refresh clamps its root's argument at eps, which
+//     passes no cotangent, and the propagated z it replaces gets none.
 //
 // Inputs: the forward's tables and pupil samples (gen_trace_common.cuh,
 // gen_trace.cu) and the cotangents of its 8 outputs, cot [8, W, F, n].
 // Outputs:
 //   dgen    [F, 16]    columns 0-6, 8, 9 (the rest are 0), summed over W
 //   dconsts [W, S, 32] columns 0-5; 6 on a coated surface; 8-19 on a tilted
-//                      or decentered one (the rest are 0)
+//                      or decentered one; 27 (the vertex gap) in the split
+//                      mode (the rest are 0)
 //   dacoef  [S, C]     the asphere terms' (the rest are 0), summed over W
 //   dPx, dPy [n]       summed over W and F (optional)
 //
@@ -54,7 +66,8 @@
 //      from shared memory, into one partial per block and quantity. The
 //      quantities ("slots") of surface k start at layout.qoff[k]: consts
 //      columns 0-5, then 6 if coated, then 8-19 if tilted, then its asphere
-//      terms; dgen's 9 follow the last surface's.
+//      terms, then column 27 in the split mode; dgen's 9 follow the last
+//      surface's.
 //   2. gen_grad_reduce: one block per output element sums its partials in
 //      float64, each thread a fixed strided subset, then a fixed tree; the
 //      sums are 4M-36M float32 terms, so float64 keeps the order from
@@ -65,6 +78,10 @@
 //   bit-identical gradients. (The TPU kernel accumulated across its
 //   sequential grid instead, pallas_grad.py:147-180; blocks on a GPU run in
 //   no order.)
+//   4. The OPD modes: the boundary state needs no OPD (no surface's
+//      geometry reads it), the cotangent of opd_c rides beside the OPD's
+//      through the sweep, and in the split mode the propagation sign is
+//      unwound surface by surface from its value after the stack.
 //
 // Bounds on an H100: per ray it reads 8 B of pupil and 32 B of cotangents
 // and writes 8 B of pupil cotangents per (w, f) plane; the arithmetic is
@@ -76,20 +93,27 @@
 // bound, so it is bound by instruction issue, as K1 is (PERF.md).
 #include "gen_trace_common.cuh"
 
+#ifndef GRAD_MODE
+#define GRAD_MODE OPD_PLAIN
+#endif
+
 #define GBLOCK 256
 #define NWARP (GBLOCK / 32)
 #define NGEN 9        // gen columns with a cotangent: 0-6, 8, 9
 #define NDC 19        // consts columns with a cotangent: 0-6, 8-19
 #define RBLOCK 256    // threads of the reduction kernels
 
-// The flag words and where each surface's slots start (qoff[S]: dgen's).
+// The flag words, where each surface's slots start (qoff[S]: dgen's), and
+// whether each surface has a vertex-gap slot (the split mode).
 struct GradLayout {
     int32_t f[MAX_SURF];
     int32_t qoff[MAX_SURF + 1];
+    int32_t split;
 };
 
+// Cotangents of the ray state; opdc is the Kahan compensation's.
 struct Adj {
-    float x, y, z, L, M, N, inten, opd;
+    float x, y, z, L, M, N, inten, opd, opdc;
 };
 
 __host__ __device__ __forceinline__ int n_slots(int fl) {
@@ -103,6 +127,7 @@ __device__ __forceinline__ int const_slot(const GradLayout& g, int k, int j) {
     if (j < 6) return g.qoff[k] + j;
     if (j == 6) return coat ? g.qoff[k] + 6 : -1;
     if (j >= 8 && j <= 19 && (fl & FLAG_CS)) return g.qoff[k] + 6 + coat + (j - 8);
+    if (j == 27 && g.split) return g.qoff[k] + n_slots(fl);
     return -1;
 }
 
@@ -203,12 +228,14 @@ __device__ __forceinline__ void asphere_sag_adjoint(
 // recomputed intermediates. ``a`` holds the cotangent of the output state on
 // entry and of the input state on return; dc receives the cotangents of
 // consts columns 0-6 and 8-19 (dc[7 + j - 8] for column j >= 8), da those of
-// the surface's asphere terms.
-template <bool WIDE>
+// the surface's asphere terms, dgap that of column 27 (the split mode).
+template <bool WIDE, int MODE>
 __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
-                                                int fl, const RayState& in,
+                                                int fl, float sigma,
+                                                const RayState& in,
                                                 const SurfTape& tp, Adj& a,
-                                                float dc[NDC], float* da) {
+                                                float dc[NDC], float* da,
+                                                float& dgap) {
     const float ri = c[0], conic = c[1];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
     const bool cs = WIDE && (fl & FLAG_CS);
@@ -221,6 +248,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     const float t = tp.t;
     float dri = 0.0f, dconic = 0.0f, dpz = 0.0f, dn1 = 0.0f, dn2 = 0.0f,
           dalpha = 0.0f;
+    dgap = 0.0f;
 #pragma unroll
     for (int j = 0; j < NDC; ++j) dc[j] = 0.0f;
 
@@ -250,7 +278,8 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         dc[17] = ayg;
         dc[18] = azg;
     } else {
-        dpz += a.z;
+        // the split mode's z_out is the refreshed z (no position added)
+        if (MODE != OPD_SPLIT) dpz += a.z;
         ax2 = a.x;
         ay2 = a.y;
         az2 = a.z;
@@ -378,10 +407,73 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         dalpha -= dat * t;
         dt -= dat * alpha;
     }
-    // ---- opd_out = opd + |t * n1| ------------------------------------------
-    const float dtn1 = a.opd * sgn(t * n1);
-    dt += dtn1 * n1;
-    dn1 += dtn1 * t;
+    // ---- split: z_out = sag(x2, y2) = (r2 ri) / (1 + sq), sq = sqrt(arg >
+    // eps ? arg : eps), arg = 1 - (((1 + conic) ri) ri) r2; 0 on a plane.
+    // The propagated z it replaces gets no cotangent -------------------------
+    if (MODE == OPD_SPLIT) {
+        const float azs = az2;
+        az2 = 0.0f;
+        if (!(fl & FLAG_PLANE)) {
+            const float r2 = x2 * x2 + y2 * y2;
+            const float den = 1.0f + tp.sq_z;
+            const float zs = r2 * ri / den;
+            const float dnum = azs / den;
+            const float dsq = -azs * zs / den;
+            float dr2 = dnum * ri;
+            dri += dnum * r2;
+            const float darg = tp.arg_z > EPS_GUARD ? dsq / (2.0f * tp.sq_z)
+                                                    : 0.0f;
+            const float B = (1.0f + conic) * ri;
+            const float A = B * ri;
+            const float dA = -darg * r2;
+            dr2 -= darg * A;
+            const float dB = dA * ri;
+            dri += dA * B + dB * (1.0f + conic);
+            dconic += dB * ri;
+            ax2 += 2.0f * x2 * dr2;
+            ay2 += 2.0f * y2 * dr2;
+        }
+    }
+    // ---- the OPD sum: opd_out = opd + v, plain or compensated ---------------
+    float gv = a.opd;                          // the cotangent of v
+    if (MODE != OPD_PLAIN) {
+        const float gtk = a.opd + a.opdc;
+        gv = gtk - a.opdc;
+        a.opd = gv;
+        a.opdc = -gv;
+    }
+    float gtq = 0.0f, gzp = 0.0f;
+    if (MODE == OPD_SPLIT) {
+        // v = dev = ((n1 sigma) gap) ratio - ((sigma n1) zp) / nabs [+ n1 tq],
+        // ratio = onem / nabs, onem = (L^2 + M^2) / den, den = 1 + nabs,
+        // nabs = sigma N
+        const float gap = c[27];
+        const float A = n1 * sigma * gap;
+        const float Bv = sigma * n1 * tp.zp;
+        const float gratio = gv * A;
+        const float gB = -gv / tp.nabs;
+        float gnabs = gv * Bv / (tp.nabs * tp.nabs);
+        const float gonem = gratio / tp.nabs;
+        gnabs -= gratio * tp.ratio / tp.nabs;
+        const float gnum = gonem / tp.den;
+        gnabs -= gonem * tp.onem / tp.den;
+        aL += 2.0f * L * gnum;
+        aM += 2.0f * M * gnum;
+        aN += sigma * gnabs;
+        const float gA = gv * tp.ratio;
+        dn1 += gA * sigma * gap + gB * sigma * tp.zp;
+        dgap += gA * n1 * sigma;
+        gzp = gB * sigma * n1;
+        if (!(fl & FLAG_PLANE)) {
+            dn1 += gv * tp.tq;
+            gtq = gv * n1;
+        }
+    } else {
+        // v = |t * n1|
+        const float dtn1 = gv * sgn(t * n1);
+        dt += dtn1 * n1;
+        dn1 += dtn1 * t;
+    }
     // ---- propagation: (x2, y2, z2) = (x, y, z1) + t (L, M, N) --------------
     dt += ax2 * L + ay2 * M + az2 * N;
     aL += ax2 * t;
@@ -416,7 +508,8 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         aN -= dt * t / N;
     } else {
         float dt0 = dt;
-        const float dtq = tp.ok ? dt : 0.0f;
+        // t = t0 + tq; the split deviation reads tq too
+        const float dtq = tp.ok ? dt + gtq : 0.0f;
         const float dtn = tp.near ? dtq : 0.0f;
         const float dtf = tp.near ? 0.0f : dtq;
         // t_near = cc / eps_guard(q), t_far = q / eps_guard(a)
@@ -487,10 +580,17 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         dc[17] -= a.y;
         dc[18] -= a.z;
     } else {
-        dpz -= az1;
+        // z1 = z - pos_z; in the split mode z1 = zp - gap, and zp also
+        // enters the deviation
+        if (MODE == OPD_SPLIT) {
+            dgap -= az1;
+            a.z = az1 + gzp;
+        } else {
+            dpz -= az1;
+            a.z = az1;
+        }
         a.x = ax;
         a.y = ay;
-        a.z = az1;
         a.L = aL;
         a.M = aM;
         a.N = aN;
@@ -503,7 +603,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     dc[5] = dalpha;
 }
 
-template <int MAXS, bool WIDE>
+template <int MAXS, bool WIDE, int MODE>
 __global__ void __launch_bounds__(GBLOCK)
 gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                 const float* __restrict__ acoef, const float* __restrict__ px,
@@ -535,7 +635,8 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     // ---- forward, keeping each surface's input state ----------------------
     float st[MAXS][7];
     RayState s;
-    gen_prologue(sg, Px, Py, s);
+    gen_prologue<MODE>(sg, Px, Py, s);
+    float sigma = 1.0f;
     for (int k = 0; k < S; ++k) {
         st[k][0] = s.x;
         st[k][1] = s.y;
@@ -545,14 +646,15 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         st[k][5] = s.N;
         st[k][6] = s.inten;
         SurfTape tp;
-        surface_step<WIDE>(sc + k * CONST_W, acoef + (size_t)k * C,
-                           layout.f[k], s, tp);
+        surface_step<WIDE, MODE>(sc + k * CONST_W, acoef + (size_t)k * C,
+                                 layout.f[k], sigma, s, tp);
+        if (layout.f[k] & FLAG_REFL) sigma = -sigma;
     }
 
     // ---- cotangents; the NaN step's transpose zeroes lost rays' ------------
     const size_t plane = (size_t)W * F * n;
     const size_t o = ((size_t)w * F + f) * n + (active ? i : 0);
-    Adj a = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    Adj a = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (active) {
         a.inten = cot[6 * plane + o];
         if (s.valid) {
@@ -581,6 +683,7 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         const float* c = sc + k * CONST_W;
         const float* ac = acoef + (size_t)k * C;
         const int fl = layout.f[k];
+        if (fl & FLAG_REFL) sigma = -sigma;    // the sign before surface k
         RayState in;
         in.x = st[k][0];
         in.y = st[k][1];
@@ -590,15 +693,21 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         in.N = st[k][5];
         in.inten = st[k][6];
         in.opd = 0.0f;
+        in.opd_c = 0.0f;
         in.valid = true;
         RayState out = in;
         SurfTape tp;
-        surface_step<WIDE>(c, ac, fl, out, tp);
+        surface_step<WIDE, MODE>(c, ac, fl, sigma, out, tp);
         float dc[NDC];
         float da[WIDE ? MAX_TERMS : 1];
         const int nu = WIDE ? nu_of(fl) : 0;
         for (int j = 0; j < nu; ++j) da[j] = 0.0f;
-        surface_adjoint<WIDE>(c, ac, fl, in, tp, a, dc, da);
+        float dgap;
+        surface_adjoint<WIDE, MODE>(c, ac, fl, sigma, in, tp, a, dc, da, dgap);
+        if (MODE == OPD_SPLIT) {
+            const float v = warp_sum(active ? dgap : 0.0f);
+            if (lane == 0) sw[warp * nq + layout.qoff[k] + n_slots(fl)] = v;
+        }
         int q = layout.qoff[k];
 #pragma unroll
         for (int j = 0; j < 6; ++j) {
@@ -645,7 +754,8 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     ddyr += 2.0f * dyr * dsm;
     ddzr += 2.0f * dzr * dsm;
     float ax = a.x - ddxr, ay = a.y - ddyr;
-    const float az = a.z - ddzr;
+    // the split frame's launch z is 0, not g4
+    const float az = (MODE == OPD_SPLIT ? 0.0f : a.z) - ddzr;
     float dgv[NGEN];
     dgv[0] = ax * Px;            // x = Px g0 + g2
     dgv[1] = ay * Py;            // y = Py g1 + g3
@@ -755,24 +865,29 @@ sum_wf(const float* __restrict__ src, float* __restrict__ dst, int WF,
 
 static int n_blocks(long long n) { return (int)((n + GBLOCK - 1) / GBLOCK); }
 
-// The flag words and slot offsets of S surfaces; false if a word is invalid.
+// The flag words and slot offsets of S surfaces in this library's OPD
+// mode; false if a word is invalid or the mode cannot take it.
 static bool make_layout(const int32_t* flags, int S, int C, GradLayout& g) {
     int q = 0;
+    g.split = GRAD_MODE == OPD_SPLIT;
     for (int k = 0; k < MAX_SURF; ++k) {
         g.f[k] = k < S ? flags[k] : 0;
         if (nu_of(g.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS)) return false;
         g.qoff[k] = q;
-        if (k < S) q += n_slots(g.f[k]);
+        if (k < S) q += n_slots(g.f[k]) + g.split;
     }
     g.qoff[MAX_SURF] = q;
-    return true;
+    return !g.split || split_ok(g.f, S);
 }
 
-// Floats of the partials buffer gen_grad_launch needs (-1 for bad flags).
+// Floats of the partials buffer gen_grad_launch needs (-1 for bad flags or
+// another library's mode).
 extern "C" long long gen_grad_partials_size(const int32_t* flags, int S, int F,
-                                            int W, long long n) {
+                                            int W, long long n, int opd_mode) {
     GradLayout g;
-    if (S < 1 || S > MAX_SURF || !make_layout(flags, S, MAX_TERMS, g)) return -1;
+    if (S < 1 || S > MAX_SURF || opd_mode != GRAD_MODE ||
+        !make_layout(flags, S, MAX_TERMS, g))
+        return -1;
     return (long long)(g.qoff[S] + NGEN) * W * F * n_blocks(n);
 }
 
@@ -786,11 +901,11 @@ static int launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
     const size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
     if (shmem > 48 * 1024) {
         const int err = (int)cudaFuncSetAttribute(
-            gen_grad_kernel<MAXS, WIDE>,
+            gen_grad_kernel<MAXS, WIDE, GRAD_MODE>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
         if (err) return err;
     }
-    gen_grad_kernel<MAXS, WIDE><<<grid, GBLOCK, shmem, stream>>>(
+    gen_grad_kernel<MAXS, WIDE, GRAD_MODE><<<grid, GBLOCK, shmem, stream>>>(
         gen, consts, acoef, px, py, cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
         n, nblk, final_prop);
     return (int)cudaGetLastError();
@@ -822,7 +937,8 @@ static int launch_grad(dim3 grid, cudaStream_t st, const float* gen,
 
 // Launch the three kernels on ``stream``; returns cudaGetLastError() after
 // each launch (0 on success). flags is a host array of S words; acoef has C
-// floats per surface; part holds gen_grad_partials_size floats;
+// floats per surface; opd_mode must be this library's GRAD_MODE; part holds
+// gen_grad_partials_size floats;
 // dpx_wf/dpy_wf hold W*F*n floats each, or are null (then dpx/dpy are not
 // written). Allocates nothing and does not synchronise.
 extern "C" int gen_grad_launch(const float* gen, const float* consts,
@@ -832,11 +948,11 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
                                float* dconsts, float* dacoef, float* dpx,
                                float* dpy, const int32_t* flags, int S, int F,
                                int W, int C, long long n, int final_prop,
-                               void* stream) {
+                               int opd_mode, void* stream) {
     GradLayout g;
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
         n < 1 || C < 0 || (dpx_wf == nullptr) != (dpy_wf == nullptr) ||
-        !make_layout(flags, S, C, g))
+        opd_mode != GRAD_MODE || !make_layout(flags, S, C, g))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int nblk = n_blocks(n);

@@ -1,0 +1,5 @@
+// K2 in the split OPD mode: gen_grad.cu built with GRAD_MODE = OPD_SPLIT,
+// into a library of its own, so that the three modes build in parallel.
+#include "gen_trace_common.cuh"
+#define GRAD_MODE OPD_SPLIT
+#include "gen_grad.cu"

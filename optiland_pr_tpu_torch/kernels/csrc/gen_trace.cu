@@ -1,13 +1,16 @@
-// K1, sub-slices (a), (b) and the even/odd aspheres of (c): fused ray
-// generation + surface stack + image propagation, one ray per thread.
+// K1, sub-slices (a), (b), the even/odd aspheres of (c) and the OPD modes of
+// (g): fused ray generation + surface stack + image propagation, one ray per
+// thread.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_trace.py::
 // _pallas_gen_trace_2d (body _gen_kernel -> _gen_pipeline = _gen_prologue,
 // _surface_step per surface, _gen_epilogue, _nanify8) for conic, plane and
 // even/odd aspheric surfaces that refract or reflect, with absorption in the
 // pre-material, tilt/decenter, radial and offset-radial apertures and simple
-// coatings. The device code of the three stages is gen_trace_common.cuh,
-// which the backward kernel (gen_grad.cu) shares.
+// coatings, with the plain, Kahan-compensated or split OPD sum
+// (gen_trace_common.cuh describes the modes). The device code of the three
+// stages is gen_trace_common.cuh, which the backward kernel (gen_grad.cu)
+// shares.
 //
 // Layout (shared with the plain version, kernels/gen_trace.py): the tables of
 // gen_trace_common.cuh (acoef [S, C] with row stride C), plus
@@ -33,12 +36,17 @@
 // bound by instruction issue, not by memory bandwidth (PERF.md). An asphere
 // adds 10 evaluations of its sag (8 Newton steps, the live step, the normal),
 // each ~20 operations and a division plus 6 per term: the aspheric cases are
-// bound by operations too.
+// bound by operations too. The OPD modes are templates too: the Kahan sum
+// adds 3 operations per surface, the split mode 29 per conic surface (the
+// deviation with two divisions, the compensated sum and the sag refresh
+// with a division and a square root) and 15 per plane, and one register
+// for the compensation; the plain mode compiles the code that ran before
+// them (measured on an H100: split +36% on the Cooke triplet, PERF.md).
 #include "gen_trace_common.cuh"
 
 #define BLOCK 256
 
-template <bool WIDE>
+template <bool WIDE, int MODE>
 __global__ void __launch_bounds__(BLOCK)
 gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                  const float* __restrict__ acoef, const float* __restrict__ px,
@@ -58,11 +66,13 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     if (i >= n) return;
 
     RayState s;
-    gen_prologue(sg, px[i], py[i], s);
+    gen_prologue<MODE>(sg, px[i], py[i], s);
+    float sigma = 1.0f;
     for (int k = 0; k < S; ++k) {
         SurfTape tp;
-        surface_step<WIDE>(sc + k * CONST_W, acoef + (size_t)k * C, flags.f[k],
-                           s, tp);
+        surface_step<WIDE, MODE>(sc + k * CONST_W, acoef + (size_t)k * C,
+                                 flags.f[k], sigma, s, tp);
+        if (flags.f[k] & FLAG_REFL) sigma = -sigma;
     }
     gen_epilogue(sg, final_prop, s);
 
@@ -82,17 +92,41 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     out[7 * plane + o] = s.opd;
 }
 
+template <bool WIDE, int MODE>
+static void launch(dim3 grid, cudaStream_t st, const float* gen,
+                   const float* consts, const float* acoef, const float* px,
+                   const float* py, float* out, const SurfFlags& fl, int S,
+                   int F, int W, int C, long long n, int final_prop) {
+    gen_trace_kernel<WIDE, MODE><<<grid, BLOCK, 0, st>>>(
+        gen, consts, acoef, px, py, out, fl, S, F, W, C, n, final_prop);
+}
+
+template <int MODE>
+static void launch_mode(bool wide, dim3 grid, cudaStream_t st,
+                        const float* gen, const float* consts,
+                        const float* acoef, const float* px, const float* py,
+                        float* out, const SurfFlags& fl, int S, int F, int W,
+                        int C, long long n, int final_prop) {
+    if (wide)
+        launch<true, MODE>(grid, st, gen, consts, acoef, px, py, out, fl, S,
+                           F, W, C, n, final_prop);
+    else
+        launch<false, MODE>(grid, st, gen, consts, acoef, px, py, out, fl, S,
+                            F, W, C, n, final_prop);
+}
+
 // Launch on ``stream``; returns cudaGetLastError() (0 on success). flags is a
-// host array of S words; acoef has C floats per surface. Allocates nothing
-// and does not synchronise.
+// host array of S words; acoef has C floats per surface; opd_mode is
+// OPD_PLAIN, OPD_KAHAN or OPD_SPLIT (the last for untilted conic/plane
+// stacks only). Allocates nothing and does not synchronise.
 extern "C" int gen_trace_launch(const float* gen, const float* consts,
                                 const float* acoef, const float* px,
                                 const float* py, float* out,
                                 const int32_t* flags, int S, int F, int W,
                                 int C, long long n, int final_prop,
-                                void* stream) {
+                                int opd_mode, void* stream) {
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
-        n < 1 || C < 0)
+        n < 1 || C < 0 || opd_mode < OPD_PLAIN || opd_mode > OPD_SPLIT)
         return (int)cudaErrorInvalidValue;
     SurfFlags fl;
     for (int k = 0; k < MAX_SURF; ++k) {
@@ -100,12 +134,19 @@ extern "C" int gen_trace_launch(const float* gen, const float* consts,
         if (nu_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS))
             return (int)cudaErrorInvalidValue;
     }
+    if (opd_mode == OPD_SPLIT && !split_ok(fl.f, S))
+        return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK), (unsigned)F, (unsigned)W);
-    if (needs_wide(fl.f, S))
-        gen_trace_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-            gen, consts, acoef, px, py, out, fl, S, F, W, C, n, final_prop);
+    const bool wide = needs_wide(fl.f, S);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (opd_mode == OPD_SPLIT)
+        launch_mode<OPD_SPLIT>(wide, grid, st, gen, consts, acoef, px, py, out,
+                               fl, S, F, W, C, n, final_prop);
+    else if (opd_mode == OPD_KAHAN)
+        launch_mode<OPD_KAHAN>(wide, grid, st, gen, consts, acoef, px, py, out,
+                               fl, S, F, W, C, n, final_prop);
     else
-        gen_trace_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-            gen, consts, acoef, px, py, out, fl, S, F, W, C, n, final_prop);
+        launch_mode<OPD_PLAIN>(wide, grid, st, gen, consts, acoef, px, py, out,
+                               fl, S, F, W, C, n, final_prop);
     return (int)cudaGetLastError();
 }

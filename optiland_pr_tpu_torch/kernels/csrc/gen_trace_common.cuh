@@ -2,17 +2,20 @@
 // backward kernel K2 (gen_grad.cu): the launch prologue, the surface step
 // and the image epilogue, for sub-slices (a) conic and plane surfaces that
 // refract, reflect and absorb, (b) tilt/decenter, radial and offset-radial
-// apertures and simple coatings, and the even/odd aspheres of (c).
+// apertures and simple coatings, the even/odd aspheres of (c), and the OPD
+// modes of (g): the Kahan-compensated sum and the split-OPD accumulation.
 //
 // Both kernels run this one forward, so K2's recomputed forward is bit for
 // bit K1's, lost-ray masks included.
 //
 // Counterpart of optiland_pr_tpu/kernels/pallas_trace.py: _gen_prologue
-// (non-split path, 2008-2054), _surface_step (1308-1754: localize
-// 1345-1360, the conic root 1371-1404, the Newton refinement 1406-1440, the
-// aperture 1493-1500, the freeform normal 1663-1671, the coating 1733-1736,
-// globalize 1738-1748), _asphere_sag_grad (396-432) and _gen_epilogue
-// (2123-2140).
+// (2008-2054, the split frame 2032-2038), _surface_step (1308-1754:
+// localize 1345-1360, the split frame 1361-1368, the conic root 1371-1404,
+// the Newton refinement 1406-1440, the split deviation and Kahan sums
+// 1446-1481, the split sag refresh 1482-1489, the aperture 1493-1500, the
+// freeform normal 1663-1671, the coating 1733-1736, globalize 1738-1748),
+// _state_step's propagation sign (2057-2099, 2163-2168), _conic_base
+// (435-443), _asphere_sag_grad (396-432) and _gen_epilogue (2123-2140).
 //
 // Layout (shared with the plain version, kernels/gen_trace.py):
 //   gen    [F, 16]     per-field launch constants (origin/aim coefficients,
@@ -22,6 +25,8 @@
 //                      6 coating factor 8-16 rotation (row-major)
 //                      17-19 translation (tx, ty, pos_z + dz)
 //                      20 r_min^2 21 r_max^2 22-23 aperture offset
+//                      27 the signed vertex gap (split mode; surface 1's
+//                      from the launch plane)
 //   acoef  [S, C]      asphere terms, row k for surface k
 //   flags  [S]         bits 0 plane, 1 reflective, 2 absorbing, 3 tilted or
 //                      decentered, 4 aperture, 5 simple coating; bits 6-7 the
@@ -34,10 +39,27 @@
 // plain version on the card therefore agree bit for bit. Built without
 // --use_fast_math.
 //
-// Variants: surface_step is a template on WIDE. With WIDE false it compiles
-// only sub-slice (a), the code that ran before (b) and (c) existed, so a
-// conic/plane system keeps its register count and speed; the host launches
-// the WIDE variant only when a flag word has a bit of (b) or (c).
+// Variants: surface_step is a template on WIDE and on the OPD mode. With
+// WIDE false it compiles only sub-slice (a), the code that ran before (b)
+// and (c) existed, so a conic/plane system keeps its register count and
+// speed; the host launches the WIDE variant only when a flag word has a bit
+// of (b) or (c). The OPD mode (OPD_PLAIN, OPD_KAHAN, OPD_SPLIT) is the
+// caller's choice; OPD_PLAIN compiles the code that ran before (g).
+//
+// The OPD modes (sub-slice (g)):
+//   OPD_KAHAN  opd += |t n1| as a compensated (two-sum) update, with the
+//              compensation in opd_c;
+//   OPD_SPLIT  for untilted conic/plane stacks: z is local to the previous
+//              vertex (0 at the launch plane); the surface shifts by its gap
+//              (column 27) instead of its position; the per-ray sum takes
+//              only the deviation of the path from the axial gap,
+//              dev = n1 sigma gap (1-|N|)/|N| - sigma n1 zp/|N| + n1 tq with
+//              |N| = sigma N, (1-|N|) = (L^2+M^2)/(1+|N|), zp the entry z
+//              and tq the conic root's correction to t0 = -z/N, compensated;
+//              after the propagation z is the exact conic sag at the landed
+//              (x, y) (0 on a plane) and stays local. sigma, the static
+//              propagation sign, flips after each mirror. The axial base
+//              sum_k sigma_k n1_k gap_k is the caller's (kernels/gen_trace.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +75,7 @@
 enum { FLAG_PLANE = 1, FLAG_REFL = 2, FLAG_ABSORB = 4, FLAG_CS = 8,
        FLAG_AP = 16, FLAG_COAT = 32 };
 enum { GK_CONIC = 0, GK_EVEN = 1, GK_ODD = 2 };
+enum { OPD_PLAIN = 0, OPD_KAHAN = 1, OPD_SPLIT = 2 };
 #define GKIND_SHIFT 6
 #define NU_SHIFT 8
 // the bits that need the WIDE variant
@@ -88,16 +111,18 @@ __device__ __forceinline__ float sign_times(float d, float r) {
 
 struct RayState {
     float x, y, z, L, M, N, inten, opd;
+    float opd_c;      // the Kahan compensation (OPD_KAHAN, OPD_SPLIT)
     bool valid;
 };
 
 // Intermediates of one surface step. K1 discards them (the stores are dead
 // code after inlining); K2's reverse sweep reads them back.
 struct SurfTape {
-    // the state in the surface's frame before the intersection
-    float xl, yl, zl, Ll, Ml, Nl;
-    // intersection
-    float t0, x0, y0, a, bh, cc, sq, q, ag, qg, t_far, t_near, t;
+    // the state in the surface's frame before the intersection; the split
+    // mode's entry z (local to the previous vertex)
+    float xl, yl, zl, Ll, Ml, Nl, zp;
+    // intersection (tq: the conic root's correction, 0 where it failed)
+    float t0, x0, y0, a, bh, cc, sq, q, ag, qg, t_far, t_near, tq, t;
     bool ok, near;
     // the asphere's live Newton step: root estimate, point, residual, raw
     // and guarded slope, sag gradient there
@@ -105,6 +130,9 @@ struct SurfTape {
     // absorption factor; the position after propagation (local frame); the
     // aperture mask; the intensity before the coating
     float e, x2, y2, z2, mask, inten_pc;
+    // the split mode's deviation: |N|, 1 + |N|, (1 - |N|) and its ratio to
+    // |N|; the sag refresh's argument and root
+    float nabs, den, onem, ratio, arg_z, sq_z;
     // refraction
     float u, root_r, w;
     bool ok_r;
@@ -155,7 +183,18 @@ __device__ __forceinline__ Sag asphere_sag_grad(float ri, float conic,
     return o;
 }
 
+// ---- the compensated update of (opd, opd_c) by v -------------------------
+// Three separate roundings: an FMA or a reassociation would delete the
+// compensation, and the explicit intrinsics forbid both.
+__device__ __forceinline__ void kahan_add(RayState& s, float v) {
+    const float yk = sub(v, s.opd_c);
+    const float tk = add(s.opd, yk);
+    s.opd_c = sub(sub(tk, s.opd), yk);
+    s.opd = tk;
+}
+
 // ---- prologue: launch by generalized aiming (_gen_prologue) -------------
+template <int MODE>
 __device__ __forceinline__ void gen_prologue(const float* g, float Px, float Py,
                                              RayState& s) {
     s.x = add(mul(Px, g[0]), g[2]);
@@ -170,14 +209,18 @@ __device__ __forceinline__ void gen_prologue(const float* g, float Px, float Py,
     s.N = mul(dzr, inv_mag);
     s.inten = 1.0f;
     s.opd = 0.0f;
+    s.opd_c = 0.0f;
     s.valid = true;
+    // the split frame: z local to the launch plane (the aim used the true z)
+    if (MODE == OPD_SPLIT) s.z = 0.0f;
 }
 
 // ---- one surface (_surface_step) -------------------------------------------
-// c: the surface's constant row; ac: its asphere terms (read only by WIDE).
-template <bool WIDE>
+// c: the surface's constant row; ac: its asphere terms (read only by WIDE);
+// sigma: the propagation sign (read only by OPD_SPLIT).
+template <bool WIDE, int MODE>
 __device__ __forceinline__ void surface_step(const float* c, const float* ac,
-                                             int fl, RayState& s,
+                                             int fl, float sigma, RayState& s,
                                              SurfTape& tp) {
     const float ri = c[0], conic = c[1], pos_z = c[2];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
@@ -200,6 +243,9 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
         L = Ln;
         M = Mn;
         N = Nn;
+    } else if (MODE == OPD_SPLIT) {
+        tp.zp = s.z;
+        z = sub(s.z, c[27]);
     } else {
         z = sub(s.z, pos_z);
     }
@@ -231,8 +277,8 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
         tp.t_far = dvd(tp.q, tp.ag);
         tp.t_near = dvd(tp.cc, tp.qg);
         tp.near = fabsf(tp.t_near) <= fabsf(tp.t_far);
-        const float tq = tp.near ? tp.t_near : tp.t_far;
-        t = add(tp.t0, tp.ok ? tq : 0.0f);
+        tp.tq = tp.ok ? (tp.near ? tp.t_near : tp.t_far) : 0.0f;
+        t = add(tp.t0, tp.tq);
         s.valid = s.valid && tp.ok;
     }
 
@@ -267,7 +313,29 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     x = add(x, mul(t, L));
     y = add(y, mul(t, M));
     z = add(z, mul(t, N));
-    s.opd = add(s.opd, fabsf(mul(t, n1)));
+    if (MODE == OPD_SPLIT) {
+        tp.nabs = mul(sigma, N);
+        tp.den = add(1.0f, tp.nabs);
+        tp.onem = dvd(add(mul(L, L), mul(M, M)), tp.den);
+        tp.ratio = dvd(tp.onem, tp.nabs);
+        float dev = sub(mul(mul(mul(n1, sigma), c[27]), tp.ratio),
+                        dvd(mul(mul(sigma, n1), tp.zp), tp.nabs));
+        if (!(fl & FLAG_PLANE)) dev = add(dev, mul(n1, tp.tq));
+        kahan_add(s, dev);
+        // z from the exact sag at the landed (x, y)
+        if (fl & FLAG_PLANE) {
+            z = 0.0f;
+        } else {
+            const float r2 = add(mul(x, x), mul(y, y));
+            tp.arg_z = sub(1.0f, mul(mul(mul(add(1.0f, conic), ri), ri), r2));
+            tp.sq_z = sqt(tp.arg_z > EPS_GUARD ? tp.arg_z : EPS_GUARD);
+            z = dvd(mul(r2, ri), add(1.0f, tp.sq_z));
+        }
+    } else if (MODE == OPD_KAHAN) {
+        kahan_add(s, fabsf(mul(t, n1)));
+    } else {
+        s.opd = add(s.opd, fabsf(mul(t, n1)));
+    }
     if (fl & FLAG_ABSORB) {
         tp.e = expf(mul(mul(-alpha, t), 1000.0f));
         s.inten = mul(s.inten, tp.e);
@@ -354,7 +422,7 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     } else {
         s.x = x;
         s.y = y;
-        s.z = add(z, pos_z);
+        s.z = MODE == OPD_SPLIT ? z : add(z, pos_z);
         s.L = Lo;
         s.M = Mo;
         s.N = No;
@@ -371,6 +439,13 @@ __device__ __forceinline__ void gen_epilogue(const float* g, int final_prop,
         s.y = add(s.y, mul(t_img, s.M));
         s.z = add(s.z, mul(t_img, s.N));
     }
+}
+
+// True when the split mode can take the flag words: no tilt, no asphere.
+static inline bool split_ok(const int32_t* flags, int S) {
+    for (int k = 0; k < S; ++k)
+        if (flags[k] & (FLAG_CS | (3 << GKIND_SHIFT))) return false;
+    return true;
 }
 
 // True when a flag word needs the WIDE variant.

@@ -1,5 +1,5 @@
-"""K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b)
-and the even/odd aspheres of (c) (counterpart of
+"""K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b),
+the even/odd aspheres of (c) and the OPD modes of (g) (counterpart of
 ``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
 ``diff_gen_trace`` custom_vjp).
 
@@ -8,7 +8,8 @@ The module holds
   ``gen_trace_plain`` under autograd and returns ``torch.autograd.grad`` for
   the given cotangents;
 - ``gen_trace_bwd_cuda``: the wrapper of the hand-written CUDA kernel
-  ``csrc/gen_grad.cu``, built with nvcc at first use and bound with ctypes;
+  ``csrc/gen_grad.cu``, built with nvcc at first use (one library per OPD
+  mode) and bound with ctypes;
 - ``GenTrace``: the ``torch.autograd.Function`` over K1. Its forward is K1
   (the CUDA kernel on CUDA tensors, the plain version on CPU tensors), its
   backward K2 on the same device. A CUDA tensor never falls back to a plain
@@ -25,43 +26,44 @@ import ctypes
 
 import torch
 
-from .gen_trace import (CONST_W, GEN_W, build_kernel, check_tables,
-                        gen_trace_cuda, gen_trace_plain)
+from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, OPD_MODES, build_kernel,
+                        check_tables, gen_trace_cuda, gen_trace_plain)
 
 __all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
 
 
 def gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot, flags,
-                        final_prop: bool):
+                        final_prop: bool, opd_mode: str = "plain"):
     """(dgen [F, 16], dconsts [W, S, 32], dacoef [S, C], dPx [n], dPy [n])
     for the cotangents ``cot`` [8, W, F, n] of K1's outputs, by autograd
-    through the plain version."""
+    through the plain version in the OPD mode ``opd_mode``."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True)
                   for t in (gen, consts, acoef, Px, Py)]
-        out = gen_trace_plain(*leaves, flags, final_prop)
+        out = gen_trace_plain(*leaves, flags, final_prop, opd_mode)
         grads = torch.autograd.grad(out, leaves, cot, allow_unused=True)
     return tuple(torch.zeros_like(t) if d is None else d
                  for t, d in zip(leaves, grads))
 
 
 def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
-                       final_prop: bool, pupil_grad: bool = True):
+                       final_prop: bool, pupil_grad: bool = True,
+                       opd_mode: str = "plain"):
     """Launch the CUDA K2 on the current stream; returns what
     ``gen_trace_bwd_plain`` returns, with dPx/dPy None unless
     ``pupil_grad``. Raises on anything the kernel does not take."""
-    (W, S, F, n, C), words = check_tables(gen, consts, acoef, Px, Py, flags,
-                                          cot=cot)
+    (W, S, F, n, C), words, mode = check_tables(gen, consts, acoef, Px, Py,
+                                                flags, opd_mode, cot=cot)
     if tuple(cot.shape) != (8, W, F, n) or n < 1:
         raise ValueError("cot must be [8, W, F, n] with n >= 1")
     dev = Px.device
-    lib = build_kernel("gen_grad")
+    lib = build_kernel(GRAD_LIBS[opd_mode])
     words = (ctypes.c_int32 * S)(*words)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     part = empty(lib.gen_grad_partials_size(ctypes.addressof(words), S, F, W,
-                                            n))
+                                            n, mode))
     dgen, dconsts, dacoef = empty(F, GEN_W), empty(W, S, CONST_W), \
         empty(*acoef.shape)
     if pupil_grad:
@@ -79,29 +81,34 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
             Px.data_ptr(), Py.data_ptr(), cot.data_ptr(), part.data_ptr(),
             *ptrs, dgen.data_ptr(), dconsts.data_ptr(), dacoef.data_ptr(),
             *outs, ctypes.addressof(words), S, F, W, C, n,
-            int(bool(final_prop)), stream)
+            int(bool(final_prop)), mode, stream)
     if err != 0:
         raise RuntimeError(f"gen_grad kernel launch failed: CUDA error {err}")
     gen_trace_bwd_cuda.launches += 1
+    gen_trace_bwd_cuda.launches_by_mode[opd_mode] += 1
     return dgen, dconsts, dacoef, dpx, dpy
 
 
 gen_trace_bwd_cuda.launches = 0
+gen_trace_bwd_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
 
 
 class GenTrace(torch.autograd.Function):
     """K1 with K2 as its backward: ``GenTrace.apply(gen, consts, acoef, Px,
-    Py, flags, final_prop)`` returns K1's [8, W, F, n] outputs."""
+    Py, flags, final_prop, opd_mode)`` returns K1's [8, W, F, n] outputs."""
 
     @staticmethod
-    def forward(ctx, gen, consts, acoef, Px, Py, flags, final_prop):
+    def forward(ctx, gen, consts, acoef, Px, Py, flags, final_prop,
+                opd_mode="plain"):
         ctx.save_for_backward(gen, consts, acoef, Px, Py)
         ctx.flags = flags
         ctx.final_prop = final_prop
+        ctx.opd_mode = opd_mode
         if Px.device.type == "cuda":
             return gen_trace_cuda(gen, consts, acoef, Px, Py, flags,
-                                  final_prop)
-        return gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop)
+                                  final_prop, opd_mode)
+        return gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop,
+                               opd_mode)
 
     @staticmethod
     def backward(ctx, cot):
@@ -111,9 +118,11 @@ class GenTrace(torch.autograd.Function):
         if cot.device.type == "cuda":
             grads = gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot,
                                        ctx.flags, ctx.final_prop,
-                                       pupil_grad=need[3] or need[4])
+                                       pupil_grad=need[3] or need[4],
+                                       opd_mode=ctx.opd_mode)
         else:
             grads = gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot,
-                                        ctx.flags, ctx.final_prop)
+                                        ctx.flags, ctx.final_prop,
+                                        ctx.opd_mode)
         return tuple(g if need[i] else None
-                     for i, g in enumerate(grads)) + (None, None)
+                     for i, g in enumerate(grads)) + (None, None, None)

@@ -10,7 +10,13 @@ even/odd part of (c):
   factor after the interaction);
 - (c), even and odd aspheres: the conic root as a warm start, exactly
   ``NEWTON_ITERS`` Newton steps without gradient, then one differentiable
-  step (its gradient is the implicit-function-theorem one).
+  step (its gradient is the implicit-function-theorem one);
+- (g), the OPD precision modes (``OPD_MODES``): "kahan", the compensated
+  sum of the path lengths, and "split", the split-OPD accumulation of
+  untilted conic/plane stacks (``supports_split_opd``): z is carried local
+  to the previous vertex, only the sag-scale deviation of each surface's
+  path from its axial gap enters the per-ray (compensated) sum, and the
+  axial base, identical for every ray, is returned beside the rays.
 
 The module holds
 - the host plumbing: ``supports_model``, ``gen_eligible``, ``model_flags``,
@@ -21,7 +27,7 @@ The module holds
 - ``gen_trace_cuda``: the wrapper of the hand-written CUDA kernel
   ``csrc/gen_trace.cu``, built with nvcc at first use and bound with ctypes;
 - ``build_kernel``/``build_kernels``: the nvcc build of the port's CUDA
-  sources (K1 here, K2 in ``gen_grad.py``);
+  sources (K1 here, K2, one library per OPD mode, in ``gen_grad.py``);
 - ``gen_trace_conic``, the counterpart of ``pallas_gen_trace_conic``: a CPU
   tensor takes the plain version, a CUDA tensor the kernel, and nothing
   falls back. Inputs that require grad go through ``gen_grad.GenTrace``,
@@ -49,10 +55,12 @@ from ..core.rays import Rays
 from ..core.transforms import rotation_matrix
 from ..system.model import OpticModel, positions_from_params
 
-__all__ = ["supports_model", "gen_eligible", "model_flags", "NEWTON_ITERS",
+__all__ = ["supports_model", "supports_split_opd", "gen_eligible",
+           "model_flags", "NEWTON_ITERS", "OPD_MODES", "GRAD_LIBS",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
            "gen_trace_plain", "gen_trace_cuda", "gen_trace_conic",
-           "check_tables", "build_kernel", "build_kernels", "BUILD_LOG"]
+           "split_consts", "axial_base", "check_tables", "build_kernel",
+           "build_kernels", "BUILD_LOG"]
 
 CONST_W = 32       # per-surface constant row width
 GEN_W = 16         # per-field launch row width
@@ -60,6 +68,9 @@ MAX_SURFACES = 64  # the kernel's static flag table (csrc/gen_trace.cu)
 MAX_TERMS = 32     # asphere terms a surface may carry (csrc/gen_grad.cu)
 NEWTON_ITERS = 8   # fixed Newton refinements of an asphere intersection
 _EPS = 1e-14
+# the kernels' OPD modes (csrc/gen_trace_common.cuh: OPD_PLAIN, OPD_KAHAN,
+# OPD_SPLIT), by their integer codes
+OPD_MODES = ("plain", "kahan", "split")
 
 # the flag word of a surface (csrc/gen_trace_common.cuh): bits 0-5 the
 # booleans, bits 6-7 the sag kind, bits 8-15 the number of asphere terms
@@ -99,6 +110,16 @@ def supports_model(model: OpticModel) -> bool:
         if spec.coating is not None and spec.coating.kind != "simple":
             return False
     return True
+
+
+def supports_split_opd(model: OpticModel) -> bool:
+    """True when the split-OPD mode applies (``pallas_trace.py:145-156``):
+    an untilted stack of conic and plane surfaces; apertures and simple
+    coatings are allowed (the gap-path decomposition assumes per-surface z
+    frames and axial propagation signs)."""
+    return supports_model(model) and all(
+        spec.geometry.kind in ("standard", "plane")
+        and not spec.has_tilt_decenter for spec in model.surfaces[1:])
 
 
 def gen_eligible(model: OpticModel) -> bool:
@@ -218,7 +239,8 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
     else:
         apr = [0.0, math.inf, 0.0, 0.0]
 
-    # signed vertex gap (the split-OPD modes read it)
+    # column 27: the signed vertex gap (the split-OPD mode reads it;
+    # surface 1's is measured from the launch plane by gen_trace_conic)
     dz_gap = pos[k] - pos[k - 1]
     dz_gap = torch.where(torch.isfinite(dz_gap), dz_gap, 0.0)
     cols = ([radius_inv, conic, pos[k], n1, n2, alpha, coat, wls]
@@ -315,6 +337,16 @@ def gen_tables(model: OpticModel, params, wavelength, Hx=0.0, Hy=0.0):
 # the plain version
 # ---------------------------------------------------------------------------
 
+def _sqrt(v):
+    """The correctly rounded square root, the kernels' __fsqrt_rn. torch's
+    sqrt is correctly rounded on the card but not on the CPU in float32 (up
+    to 0.5001 ulp), so there the root is taken in float64 and rounded once,
+    which is correctly rounded for a float32 argument."""
+    if v.dtype == torch.float32 and v.device.type == "cpu":
+        return torch.sqrt(v.double()).float()
+    return torch.sqrt(v)
+
+
 def _eps_guard(v):
     """|v| > eps ? v : (v >= 0 ? eps : -eps), eps in v's dtype."""
     return torch.where(torch.abs(v) > _EPS, v,
@@ -329,13 +361,13 @@ def _asphere_sag_grad(ri, conic, coefs, odd: bool, xx, yy):
     clamped to eps, and the odd asphere's r to sqrt(1e-24) on the axis."""
     r2 = xx * xx + yy * yy
     arg = 1.0 - (1.0 + conic) * ri * ri * r2
-    sq = torch.sqrt(torch.where(arg > _EPS, arg, _EPS))
+    sq = _sqrt(torch.where(arg > _EPS, arg, _EPS))
     s = r2 * ri / (1.0 + sq)
     inv_sq = torch.reciprocal(sq)
     gx = xx * ri * inv_sq
     gy = yy * ri * inv_sq
     if odd:
-        step = torch.sqrt(torch.clamp(r2, min=1e-24))
+        step = _sqrt(torch.clamp(r2, min=1e-24))
         term, gterm = step, torch.reciprocal(step)
     else:
         step = r2
@@ -370,15 +402,35 @@ def _newton(t, x, y, z, L, M, N, ri, conic, coefs, odd: bool):
     return t_it - f / _eps_guard(gx * L + gy * M - N)
 
 
-def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
+def _kahan(opd, opd_c, v):
+    """The compensated update of (opd, opd_c) by v, as three separate
+    roundings (``pallas_trace.py:1466-1469``)."""
+    yk = v - opd_c
+    tk = opd + yk
+    return tk, (tk - opd) - yk
+
+
+def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
+                    opd_mode: str = "plain"):
     """Plain PyTorch K1 on the packed tables: every elementwise operation of
     ``csrc/gen_trace.cu`` in the same order, broadcast over [W, F, n].
     ``flags`` are ``model_flags``'; ``acoef`` [S, C] holds the asphere
-    terms. Differentiable by autograd (the Newton search is not taped)."""
+    terms; ``opd_mode`` is one of ``OPD_MODES``. Differentiable by autograd
+    (the Newton search is not taped).
+
+    In the "split" mode z is local to the last vertex (also in the output),
+    column 27 holds each surface's vertex gap (surface 1's from the launch
+    plane), and the OPD output is the deviation from the axial base."""
     W, S = consts.shape[0], consts.shape[1]
     F, n = gen.shape[0], Px.shape[0]
     if len(flags) != S:
         raise ValueError(f"{len(flags)} flags for {S} surfaces")
+    if opd_mode not in OPD_MODES:
+        raise ValueError(f"unknown OPD mode {opd_mode!r}")
+    split = opd_mode == "split"
+    if split and any(f[3] != "conic" or f[5] for f in flags):
+        raise ValueError("the split-OPD mode takes untilted conic/plane "
+                         "surfaces only")
 
     def g(j):                               # per-field constant, [1, F, 1]
         return gen[:, j].reshape(1, F, 1)
@@ -391,11 +443,15 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
     dxr = px * g(8) - x
     dyr = py * g(9) - y
     dzr = g(5) - z
-    inv_mag = torch.reciprocal(torch.sqrt(dxr * dxr + dyr * dyr + dzr * dzr))
+    inv_mag = torch.reciprocal(_sqrt(dxr * dxr + dyr * dyr + dzr * dzr))
     L, M, N = dxr * inv_mag, dyr * inv_mag, dzr * inv_mag
     inten = torch.ones_like(x)
     opd = torch.zeros_like(x)
+    opd_c = torch.zeros_like(x)
     valid = torch.ones_like(x, dtype=torch.bool)
+    if split:                   # z local to the launch plane from here on
+        z = torch.zeros_like(x)
+    sigma = 1.0                 # the static propagation sign
 
     for k, (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap,
             coat) in enumerate(flags):
@@ -415,6 +471,9 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
             L, M, N = (r[0] * L + r[3] * M + r[6] * N,
                        r[1] * L + r[4] * M + r[7] * N,
                        r[2] * L + r[5] * M + r[8] * N)
+        elif split:
+            zp = z
+            z = zp - c(27)
         else:
             z = z - pos_z
 
@@ -429,20 +488,42 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
             cc = (x0 * x0 + y0 * y0) * ri
             disc = bh * bh - a * cc
             ok = disc >= 0
-            sq = torch.sqrt(torch.where(ok, disc, 1.0))
+            sq = _sqrt(torch.where(ok, disc, 1.0))
             q = -(bh + torch.where(bh >= 0, sq, -sq))   # sign(0) := +1
             t_far = q / _eps_guard(a)
             t_near = cc / _eps_guard(q)
             tq = torch.where(torch.abs(t_near) <= torch.abs(t_far),
                              t_near, t_far)
-            t = t0 + torch.where(ok, tq, 0.0)
+            tq = torch.where(ok, tq, 0.0)
+            t = t0 + tq
             valid = valid & ok
         if gkind != "conic":
             t = _newton(t, x, y, z, L, M, N, ri, conic, coefs, odd)
         x = x + t * L
         y = y + t * M
         z = z + t * N
-        opd = opd + torch.abs(t * n1)
+        if split:
+            # the path's deviation from the axial gap, sag-scale:
+            # n1 gap (1-|N|)/|N| - n1 zp/|N| + n1 tq, with |N| = sigma N
+            nabs = sigma * N
+            onem = (L * L + M * M) / (1.0 + nabs)
+            dev = (n1 * sigma * c(27)) * (onem / nabs) \
+                - (sigma * n1) * zp / nabs
+            if not is_plane:
+                dev = dev + n1 * tq
+            opd, opd_c = _kahan(opd, opd_c, dev)
+            # z from the exact sag at the landed (x, y)
+            if is_plane:
+                z = torch.zeros_like(z)
+            else:
+                r2 = x * x + y * y
+                arg = 1.0 - (1.0 + conic) * ri * ri * r2
+                z = r2 * ri / (1.0 + _sqrt(torch.where(arg > _EPS, arg,
+                                                            _EPS)))
+        elif opd_mode == "kahan":
+            opd, opd_c = _kahan(opd, opd_c, torch.abs(t * n1))
+        else:
+            opd = opd + torch.abs(t * n1)
         if absorbing:
             inten = inten * torch.exp(-alpha * t * 1e3)
         if has_ap:                          # intensity mask, local frame
@@ -456,21 +537,21 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
             u = n1 / n2
             disc_r = 1.0 - u * u * (1.0 - N * N)
             ok_r = disc_r >= 0
-            root_r = torch.sqrt(torch.where(ok_r, disc_r, 1.0))
+            root_r = _sqrt(torch.where(ok_r, disc_r, 1.0))
             valid = valid & ok_r
             L, M, N = u * L, u * M, torch.sign(N) * root_r
         else:
             if gkind == "conic":
                 r2 = x * x + y * y
                 arg = 1.0 - (1.0 + conic) * ri * ri * r2
-                inv_root = torch.reciprocal(torch.sqrt(
+                inv_root = torch.reciprocal(_sqrt(
                     torch.where(arg > _EPS, arg, 1.0)))
                 dfdx = x * ri * inv_root
                 dfdy = y * ri * inv_root
             else:                           # the asphere's own slope
                 _, dfdx, dfdy = _asphere_sag_grad(ri, conic, coefs, odd, x, y)
-            inv_n = torch.reciprocal(torch.sqrt(dfdx * dfdx + dfdy * dfdy
-                                                + 1.0))
+            inv_n = torch.reciprocal(_sqrt(dfdx * dfdx + dfdy * dfdy
+                                           + 1.0))
             nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
             dot = L * nx + M * ny + N * nz
             if is_refl:
@@ -480,7 +561,7 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
                 u = n1 / n2
                 disc_r = 1.0 - u * u * (1.0 - dot * dot)
                 ok_r = disc_r >= 0
-                root_r = torch.sqrt(torch.where(ok_r, disc_r, 1.0))
+                root_r = _sqrt(torch.where(ok_r, disc_r, 1.0))
                 w = torch.sign(dot) * root_r - u * dot
                 L, M, N = u * L + nx * w, u * M + ny * w, u * N + nz * w
                 valid = valid & ok_r
@@ -495,8 +576,10 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool):
             L, M, N = (r[0] * L + r[1] * M + r[2] * N,
                        r[3] * L + r[4] * M + r[5] * N,
                        r[6] * L + r[7] * M + r[8] * N)
-        else:
+        elif not split:
             z = z + pos_z
+        if is_refl:
+            sigma = -sigma
 
     if final_prop:
         t_img = g(6)
@@ -532,14 +615,20 @@ def _find_nvcc() -> str:
 _SIGNATURES = {
     "gen_trace": [
         ("gen_trace_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)],
-    "gen_grad": [
-        ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
-         + [ctypes.c_longlong], ctypes.c_longlong),
-        ("gen_grad_launch", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
          ctypes.c_int)],
 }
+# K2: one library per OPD mode (csrc/gen_grad.cu, gen_grad_kahan.cu,
+# gen_grad_split.cu), one signature
+GRAD_LIBS = {"plain": "gen_grad", "kahan": "gen_grad_kahan",
+             "split": "gen_grad_split"}
+for _lib in GRAD_LIBS.values():
+    _SIGNATURES[_lib] = [
+        ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
+         + [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
+        ("gen_grad_launch", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int)]
 
 # what ptxas said about each library built in this process (-Xptxas -v:
 # registers, spills, shared memory per kernel)
@@ -589,12 +678,19 @@ def build_kernels() -> dict:
         return dict(zip(_SIGNATURES, pool.map(build_kernel, _SIGNATURES)))
 
 
-def check_tables(gen, consts, acoef, Px, Py, flags, **more):
+def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
+                 **more):
     """Raise ValueError unless the kernels take these inputs: contiguous
     float32 CUDA tensors on one device (``more`` names further ones), gen
     [F, 16], consts [W, S, 32], acoef [S, C] with C at least every surface's
-    asphere terms, Px/Py [n], one flag tuple per surface. Returns (W, S, F,
-    n, C) and the flag words."""
+    asphere terms, Px/Py [n], one flag tuple per surface, an OPD mode of
+    ``OPD_MODES`` (the split mode for untilted conic/plane surfaces only).
+    Returns (W, S, F, n, C), the flag words and the mode's code."""
+    if opd_mode not in OPD_MODES:
+        raise ValueError(f"unknown OPD mode {opd_mode!r}")
+    if opd_mode == "split" and any(f[3] != "conic" or f[5] for f in flags):
+        raise ValueError("the split-OPD mode takes untilted conic/plane "
+                         "surfaces only")
     dev = Px.device
     for name, t in (("gen", gen), ("consts", consts), ("acoef", acoef),
                     ("Px", Px), ("Py", Py), *more.items()):
@@ -617,13 +713,16 @@ def check_tables(gen, consts, acoef, Px, Py, flags, **more):
         raise ValueError("acoef has fewer columns than a surface's terms")
     if not (1 <= F <= 65535 and 1 <= W <= 65535):
         raise ValueError("F and W must be in 1..65535")
-    return (W, S, F, n, acoef.shape[1]), _flag_words(flags)
+    return ((W, S, F, n, acoef.shape[1]), _flag_words(flags),
+            OPD_MODES.index(opd_mode))
 
 
-def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
+def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
+                   opd_mode: str = "plain"):
     """Launch the CUDA K1 on the current stream; returns [8, W, F, n]
     float32. Raises on anything the kernel does not take."""
-    (W, S, F, n, C), words = check_tables(gen, consts, acoef, Px, Py, flags)
+    (W, S, F, n, C), words, mode = check_tables(gen, consts, acoef, Px, Py,
+                                                flags, opd_mode)
     dev = Px.device
     out = torch.empty((8, W, F, n), dtype=torch.float32, device=dev)
     if n == 0:
@@ -636,18 +735,22 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
                                    acoef.data_ptr(), Px.data_ptr(),
                                    Py.data_ptr(), out.data_ptr(),
                                    ctypes.addressof(words), S, F, W, C, n,
-                                   int(bool(final_prop)), stream)
+                                   int(bool(final_prop)), mode, stream)
     if err != 0:
         raise RuntimeError(f"gen_trace kernel launch failed: CUDA error {err}")
     gen_trace_cuda.launches += 1
+    gen_trace_cuda.launches_by_mode[opd_mode] += 1
     return out
 
 
 gen_trace_cuda.launches = 0
+gen_trace_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
 
 
 def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
-                    Hx=0.0, Hy=0.0, final_prop: bool = False) -> Rays:
+                    Hx=0.0, Hy=0.0, final_prop: bool = False,
+                    kahan: bool = False, opd_split: bool = False,
+                    keep_local_z: bool = False):
     """Fused generation + trace of the pupil samples (Px, Py) for the
     wavelength(s) and field point(s) given; the counterpart of
     ``pallas_gen_trace_conic``.
@@ -661,27 +764,74 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     cotangents then flow on through the packing into the parameters by
     ordinary autograd.
 
+    ``kahan``: the compensated OPD sum. ``opd_split`` (requires
+    ``supports_split_opd``): the split-OPD mode; the call returns ``(rays,
+    base)``, with ``rays.opd`` the deviation from the axial base ``base``
+    (per wavelength: a scalar for a scalar wavelength, else [W]; the total
+    OPD is base + deviation), computed here from the constants so that it
+    is differentiable. Its z is global unless ``keep_local_z``, which keeps
+    it local to the image vertex.
+
     A scalar wavelength and scalar field return ``n`` rays; a field vector
     F*n rays (field-major); a wavelength vector W*F*n rays in (wavelength,
     field, pupil) order. Outputs are float32."""
     if not (supports_model(model) and gen_eligible(model)):
         raise ValueError("system/call not eligible for the K1 kernel")
+    if opd_split and not supports_split_opd(model):
+        raise ValueError("opd_split needs an untilted conic/plane stack")
     px = torch.as_tensor(Px, dtype=torch.float32).contiguous()
     py = torch.as_tensor(Py, dtype=torch.float32).contiguous()
     if px.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 has no version for device {px.device}")
     flags = model_flags(model, params)
     gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy)
+    mode = "split" if opd_split else ("kahan" if kahan else "plain")
+    if opd_split:
+        consts = split_consts(params, gen, consts)
     if any(t.requires_grad for t in (gen, consts, acoef, px, py)):
         from .gen_grad import GenTrace
-        out = GenTrace.apply(gen, consts, acoef, px, py, flags, final_prop)
+        out = GenTrace.apply(gen, consts, acoef, px, py, flags, final_prop,
+                             mode)
     elif px.device.type == "cpu":
-        out = gen_trace_plain(gen, consts, acoef, px, py, flags, final_prop)
+        out = gen_trace_plain(gen, consts, acoef, px, py, flags, final_prop,
+                              mode)
     else:
-        out = gen_trace_cuda(gen, consts, acoef, px, py, flags, final_prop)
+        out = gen_trace_cuda(gen, consts, acoef, px, py, flags, final_prop,
+                             mode)
     field_vec = ndim(Hx) == 1 or ndim(Hy) == 1
-    return rays_from_outputs(out, consts[:, 0, 7], ndim(wavelength) == 0,
-                             field_vec)
+    scalar_wl = ndim(wavelength) == 0
+    rays = rays_from_outputs(out, consts[:, 0, 7], scalar_wl, field_vec)
+    if not opd_split:
+        return rays
+    if not keep_local_z:
+        z_img = positions_from_params(params)[-1]
+        rays = rays.replace(z=rays.z + z_img.to(rays.z.dtype))
+    base = axial_base(consts, flags)
+    return rays, (base[0] if scalar_wl else base)
+
+
+def split_consts(params, gen, consts):
+    """The split mode's constants: a copy of ``consts`` whose surface 1
+    measures its vertex gap (column 27) from the launch plane, z = gen[0,
+    4], as pallas_trace.py:2383-2386 does (pos[0] is -inf for an infinite
+    object). Differentiable."""
+    pos = positions_from_params(params)
+    consts = consts.clone()
+    consts[:, 0, 27] = (pos[1] - gen[0, 4].to(pos.dtype)).to(consts.dtype)
+    return consts
+
+
+def axial_base(consts, flags):
+    """The split mode's axial base per wavelength, [W]: sum_k sigma_k n1_k
+    gap_k with sigma flipping after each mirror (pallas_trace.py:2462-2476),
+    the part of every ray's OPD that the kernel leaves out."""
+    sig, sigma = [], 1.0
+    for f in flags:
+        sig.append(sigma)
+        if f[1]:
+            sigma = -sigma
+    sig = torch.tensor(sig, dtype=consts.dtype, device=consts.device)
+    return torch.sum(sig * consts[:, :, 3] * consts[:, :, 27], dim=1)
 
 
 def ndim(v) -> int:

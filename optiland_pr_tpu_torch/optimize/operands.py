@@ -3,10 +3,12 @@
 optiland/optimization/operand/).
 
 Each metric is a differentiable function ``metric(model, params,
-**input_data) -> scalar tensor``. Ported: the paraxial EPD, EPL, f2 and FNO,
-``total_track`` and ``rms_spot_size`` at the image surface. Every other name
-of the JAX package's ``METRIC_DICT`` is registered and raises
-NotImplementedError, with what it waits for (ROADMAP.md).
+**input_data) -> scalar tensor``. Ported: the paraxial EPD, EPL, XPL, f2
+and FNO, ``total_track``, ``rms_spot_size`` at the image surface, and the
+wavefront operands ``OPD_difference`` and ``rms_wavefront_error`` (on the
+card through K1's and K2's split-OPD mode). Every other name of the JAX
+package's ``METRIC_DICT`` is registered and raises NotImplementedError, with
+what it waits for (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import functools
 
 import torch
 
-from ..core.distributions import generate_distribution
+from ..core.distributions import (gaussian_quad_weights,
+                                  generate_distribution)
 from ..system.model import positions_from_params
 from ..trace.paraxial import Paraxial
 
@@ -92,6 +95,39 @@ def rms_spot_size(model, params, surface_number, Hx, Hy, num_rays, wavelength,
     return torch.sqrt(torch.sum(r2) / wsum)
 
 
+def OPD_difference(model, params, Hx, Hy, num_rays, wavelength,
+                   distribution="gaussian_quad", **kw):
+    """Weighted mean |OPD - mean(OPD)| in waves (reference
+    optimization/operand/ray.py:343-390)."""
+    from ..analysis.wavefront import wavefront_data
+    ref = params["wavelengths"]
+    if distribution == "gaussian_quad":
+        symmetric = Hx == 0 and Hy == 0
+        Px, Py = generate_distribution("gaussian_quad", num_rays,
+                                       dtype=ref.dtype, device=ref.device,
+                                       is_symmetric=symmetric)
+        w = gaussian_quad_weights(num_rays, is_symmetric=symmetric,
+                                  dtype=ref.dtype, device=ref.device)
+        weights = w if symmetric else torch.repeat_interleave(w, 3)
+    else:
+        Px, Py = _pupil(distribution, num_rays, ref.dtype, ref.device)
+        weights = 1.0
+    d = wavefront_data(model, params, (Hx, Hy), wavelength, Px, Py)
+    return torch.mean(torch.abs((d.opd - torch.mean(d.opd)) * weights))
+
+
+def rms_wavefront_error(model, params, Hx, Hy, num_rays, wavelength,
+                        distribution="hexapolar", **kw):
+    """RMS wavefront error in waves over the rays that pass."""
+    from ..analysis.wavefront import wavefront_data
+    ref = params["wavelengths"]
+    Px, Py = _pupil(distribution, num_rays, ref.dtype, ref.device)
+    d = wavefront_data(model, params, (Hx, Hy), wavelength, Px, Py)
+    valid = d.intensity > 0
+    n = torch.clamp(torch.sum(valid), min=1)
+    return torch.sqrt(torch.sum(torch.where(valid, d.opd**2, 0.0)) / n)
+
+
 def _not_ported(name, needs):
     def metric(model, params, **kw):
         raise NotImplementedError(
@@ -111,9 +147,10 @@ METRIC_DICT = {
     **{name: _not_ported(name, _THIRD_ORDER) for name in _AB_NAMES},
     **{f"{name}_sum": _not_ported(f"{name}_sum", _THIRD_ORDER)
        for name in _AB_NAMES},
-    **{name: _paraxial_metric(name) for name in ["EPD", "EPL", "f2", "FNO"]},
-    **{name: _not_ported(name, "Paraxial beyond EPD/EPL/f2/FNO")
-       for name in ["f1", "F1", "F2", "P1", "P2", "N1", "N2", "XPD", "XPL",
+    **{name: _paraxial_metric(name)
+       for name in ["EPD", "EPL", "XPL", "f2", "FNO"]},
+    **{name: _not_ported(name, "Paraxial beyond EPD/EPL/XPL/f2/FNO")
+       for name in ["f1", "F1", "F2", "P1", "P2", "N1", "N2", "XPD",
                     "magnification"]},
     "total_track": total_track,
     **{name: _not_ported(name, _HISTORY)
@@ -122,12 +159,10 @@ METRIC_DICT = {
                     "real_y_intercept_lcs", "real_z_intercept_lcs",
                     "real_L", "real_M", "real_N", "AOI", "clearance"]},
     "rms_spot_size": rms_spot_size,
-    "OPD_difference": _not_ported("OPD_difference",
-                                  "analysis/wavefront.py"),
+    "OPD_difference": OPD_difference,
     "edge_thickness": _not_ported("edge_thickness",
                                   "Paraxial marginal and chief rays"),
-    "rms_wavefront_error": _not_ported("rms_wavefront_error",
-                                       "analysis/wavefront.py"),
+    "rms_wavefront_error": rms_wavefront_error,
 }
 
 operand_registry = dict(METRIC_DICT)

@@ -1,9 +1,9 @@
 from .catalog import (AsphericSinglet, CoatedSinglet, HubbleTelescope,
-                      OddAsphereSinglet, TiltedSinglet)
+                      ObjectiveUS008879901, OddAsphereSinglet, TiltedSinglet)
 from .objectives import (CookeTriplet, DoubleGauss, TripletTelescopeObjective,
                          ReverseTelephoto, TessarLens, TIRSinglet)
 
 __all__ = ["CookeTriplet", "DoubleGauss", "TripletTelescopeObjective",
            "ReverseTelephoto", "TessarLens", "TIRSinglet", "HubbleTelescope",
-           "AsphericSinglet", "TiltedSinglet", "CoatedSinglet",
-           "OddAsphereSinglet"]
+           "AsphericSinglet", "ObjectiveUS008879901", "TiltedSinglet",
+           "CoatedSinglet", "OddAsphereSinglet"]

@@ -1,8 +1,9 @@
 """Sample systems beyond the all-conic objectives (port of the matching part
 of ``optiland_pr_tpu/samples/catalog.py``, with the same public
-prescriptions), and the single-lens test systems of the JAX package's kernel
-suite (``tests/test_pallas_widened.py``): a tilted and decentered singlet, a
-coated singlet and an odd-asphere singlet."""
+prescriptions: the Hubble telescope, the aspheric singlet and the 25-surface
+objective of U.S. Patent 8,879,901), and the single-lens test systems of the
+JAX package's kernel suite (``tests/test_pallas_widened.py``): a tilted and
+decentered singlet, a coated singlet and an odd-asphere singlet."""
 from __future__ import annotations
 
 import math
@@ -11,10 +12,12 @@ from ..system.apertures import RadialAperture
 from ..system.coatings import SimpleCoating
 from ..system.optic import Optic
 
-__all__ = ["HubbleTelescope", "AsphericSinglet", "TiltedSinglet",
-           "CoatedSinglet", "OddAsphereSinglet"]
+__all__ = ["HubbleTelescope", "AsphericSinglet", "ObjectiveUS008879901",
+           "TiltedSinglet", "CoatedSinglet", "OddAsphereSinglet"]
 
 inf = math.inf
+# the Fraunhofer F, d and C lines, d primary
+_FRAUNHOFER = [(0.48613270, False), (0.58756180, True), (0.65627250, False)]
 
 
 def HubbleTelescope() -> Optic:
@@ -53,6 +56,40 @@ def AsphericSinglet() -> Optic:
     lens.set_field_type(field_type="angle")
     lens.add_field(y=0)
     lens.add_wavelength(value=0.587, is_primary=True)
+    return lens
+
+
+def ObjectiveUS008879901() -> Optic:
+    """25-surface camera objective, U.S. Patent 8,879,901: catalog glasses,
+    a plane stop and a plane-parallel plate, f/2 in image space."""
+    lens = Optic(name="Objective US 8,879,901")
+    lens.add_surface(index=0, radius=inf, thickness=inf)
+    rows = [  # (radius, thickness, material), surfaces 1-24
+        (47.07125235, 5.29811826, "N-LAF32"), (184.28171667, 0.6, None),
+        (29.92177645, 7.13654863, "H-ZLAF52A"), (50.4992638, 2.0, None),
+        (60.5004845, 0.99941671, "E-SF1"), (17.72638376, 9.9, None),
+        (inf, 8.7, None),
+        (-17.49862241, 1.29934579, ("SF4", "hikari")),
+        (1000.00000019, 8.44325264, "M-TAF1"), (-28.00122422, 0.1, None),
+        (-141.99976777, 6.79950254, "M-TAF1"), (-35.94103045, 0.516, None),
+        (92.00034667, 3.29901361, "Q-LAFPH1S"),
+        (-277.85210888, 2.13, None),
+        (-157.24588662, 1.29980422, "S-FSL5"), (740.47397742, 0.25, None),
+        (19.91929498, 5.59345688, "J-LASF015"), (36.48852623, 0.574, None),
+        (45.97532235, 1.00045731, "E-SF1"), (16.39521847, 2.951, None),
+        (33.86131631, 3.22444231, "H-LAK52"), (inf, 8.0, None),
+        (inf, 4.0, "H-LAK52"), (inf, 3.15317838, None)]
+    for k, (radius, thickness, material) in enumerate(rows, start=1):
+        kw = {} if material is None else {"material": material}
+        lens.add_surface(index=k, radius=radius, thickness=thickness,
+                         is_stop=k == 7, **kw)
+    lens.add_surface(index=25)
+    lens.set_aperture(aperture_type="imageFNO", value=2.0)
+    lens.set_field_type(field_type="angle")
+    for y in (0.0, 7.574, 10.82):
+        lens.add_field(y=y)
+    for wl, primary in _FRAUNHOFER:
+        lens.add_wavelength(value=wl, is_primary=primary)
     return lens
 
 

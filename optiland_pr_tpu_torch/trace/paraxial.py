@@ -1,5 +1,6 @@
 """Paraxial y-u trace and first-order system properties
-(port of ``optiland_pr_tpu/trace/paraxial.py``, without the GRIN gaps).
+(port of ``optiland_pr_tpu/trace/paraxial.py``: EPD, EPL, XPL, f2 and FNO,
+without the GRIN gaps).
 
 Every quantity is a differentiable function of (model, params); the surface
 loop is a Python loop over a handful of scalars.
@@ -121,6 +122,14 @@ class Paraxial:
             u0 = 0.1 * ap_value / y[stop_index][0]
             return u0 * (EPL - obj_z)
         raise NotImplementedError(f"aperture type {m.ap_type}")
+
+    def XPL(self):
+        """Exit-pupil location relative to the image surface: the unit ray
+        from the stop's vertex traced forward from the surface after it."""
+        stop_index = self.model.stop_index
+        z0 = self._pos()[stop_index]
+        y, u = self._trace(0.0, 0.1, z0, skip=stop_index + 1)
+        return (-y[-1] / u[-1])[0]
 
     def FNO(self):
         if self.model.ap_type == "imageFNO":

@@ -16,9 +16,9 @@ import torch
 from ..core import rays as R
 from ..core.transforms import globalize, localize, rotation_matrix
 from ..system.model import OpticModel, positions_from_params
-from .raygen import generate_rays
+from .raygen import generate_rays, vig_factor
 
-__all__ = ["trace_surface", "trace_system", "trace"]
+__all__ = ["trace_surface", "trace_system", "trace", "trace_generic"]
 
 
 def _pre_material(model: OpticModel, params, k: int):
@@ -152,3 +152,24 @@ def trace(model: OpticModel, params, Hx, Hy, wavelength, Px, Py,
     if final_prop:
         rays = _final_image_propagation(params, rays)
     return rays
+
+
+def trace_generic(model: OpticModel, params, Hx, Hy, Px, Py, wavelength):
+    """Trace explicitly given (field, pupil) coordinates, broadcast against
+    each other, to the image, with the vignetting scale on the pupil
+    coordinates (``optiland_pr_tpu/trace/real.py:332-350``; the recorded
+    ray history, ``record=True``, is not ported)."""
+    ref = params["wavelengths"]
+    dt, dev = ref.dtype, ref.device
+
+    def as1d(v):
+        return torch.atleast_1d(torch.as_tensor(v, dtype=dt, device=dev))
+    Hx, Hy, Px, Py = torch.broadcast_tensors(as1d(Hx), as1d(Hy), as1d(Px),
+                                             as1d(Py))
+    vx, vy = vig_factor(model, params, Hx, Hy)
+    rays = generate_rays(model, params, Hx, Hy, Px * (1 - vx),
+                         Py * (1 - vy), wavelength)
+    wl = torch.as_tensor(wavelength, dtype=dt, device=dev)
+    rays = trace_system(model, params, rays,
+                        wl_scalar=wl if wl.ndim == 0 else None)
+    return _final_image_propagation(params, rays)

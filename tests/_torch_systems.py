@@ -62,6 +62,23 @@ def _combined(optic, coatings, apertures):
     return lens
 
 
+def _singlet(optic):
+    """A plain N-BK7 singlet whose every ray passes at both fields: the
+    small system of the float64 wavefront references."""
+    lens = optic(name="wavefront singlet")
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=50.0, thickness=6.0, material="N-BK7",
+                     is_stop=True)
+    lens.add_surface(index=2, radius=-300.0, thickness=85.0)
+    lens.add_surface(index=3)
+    lens.set_aperture(aperture_type="EPD", value=16.0)
+    lens.set_field_type(field_type="angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=5.0)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
 def jax_combined():
     return _combined(JOptic, jcoatings, japertures)
 
@@ -79,11 +96,26 @@ def _widened(name):
 
 
 def builders(name):
-    """(JAX builder, port builder) of the sample ``name``."""
+    """(JAX builder, port builder) of the sample ``name``; "BenchtopHubble"
+    is the Hubble telescope scaled by 0.02 with its primary's conic at -0.90
+    (the JAX gradient suite's construction, tests/test_pallas_grad.py:
+    92-112)."""
+    if name == "BenchtopHubble":
+        def benchtop(build):
+            def make():
+                lens = build()
+                lens.scale_system(0.02)
+                lens.set_conic(-0.90, 2)
+                return lens
+            return make
+        return (benchtop(jsamples.HubbleTelescope),
+                benchtop(tsamples.HubbleTelescope))
     if name == "TIRSinglet":
         return jax_tir_singlet, tsamples.TIRSinglet
     if name == "Combined":
         return jax_combined, torch_combined
+    if name == "Singlet":
+        return (lambda: _singlet(JOptic)), (lambda: _singlet(TOptic))
     if name in ("TiltedSinglet", "CoatedSinglet", "OddAsphereSinglet"):
         return _widened(name), getattr(tsamples, name)
     return getattr(jsamples, name), getattr(tsamples, name)
@@ -102,11 +134,13 @@ class _Captured(Exception):
     pass
 
 
-def jax_tables(jmodel, jparams, wls, fields):
+def jax_tables(jmodel, jparams, wls, fields, **kw):
     """The (gen, consts, acoef, flags) the JAX entry point
     ``pallas_gen_trace_conic`` hands its kernel for float32 parameters, the
-    wavelengths ``wls`` and the fields (0, Hy) for Hy in ``fields``; the
-    call stops there, before the kernel runs."""
+    wavelengths ``wls`` and the fields (0, Hy) for Hy in ``fields``, and
+    the entry point's further options ``kw`` (``opd_split=True`` measures
+    surface 1's gap from the launch plane); the call stops there, before
+    the kernel runs."""
     seen = {}
 
     def capture(gen, consts, acoef, Px, Py, **kw):
@@ -122,7 +156,7 @@ def jax_tables(jmodel, jparams, wls, fields):
             jnp.zeros(128, jnp.float32), jnp.zeros(128, jnp.float32),
             jnp.asarray(wls, jnp.float32),
             Hx=jnp.zeros(len(fields), jnp.float32),
-            Hy=jnp.asarray(fields, jnp.float32), final_prop=True)
+            Hy=jnp.asarray(fields, jnp.float32), final_prop=True, **kw)
     except _Captured:
         pass
     finally:

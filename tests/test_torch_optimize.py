@@ -245,9 +245,9 @@ def test_scipy_optimizers_lower_the_merit(optimizer):
 def test_what_is_not_ported_raises():
     p = _port_problem()
     with pytest.raises(NotImplementedError, match="not ported"):
-        p.add_operand("OPD_difference", target=0.0,
-                      input_data={"Hx": 0, "Hy": 0, "num_rays": 3,
-                                  "wavelength": 0.55})
+        p.add_operand("AOI", target=0.0,
+                      input_data={"surface_number": 1, "Hx": 0, "Hy": 0,
+                                  "Px": 0, "Py": 0, "wavelength": 0.55})
         p.fun_array()
     with pytest.raises(NotImplementedError, match="ray history"):
         topt.operand_registry["rms_spot_size"](

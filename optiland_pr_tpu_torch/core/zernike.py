@@ -5,10 +5,12 @@ The term tables are computed on the host (the number of terms is static);
 the radial polynomials are sums of powers, and the fit is one least-squares
 solve, differentiable by autograd. The solve runs in float64 whatever the
 data's dtype: on CUDA ``torch.linalg.lstsq`` has only the ``gels`` driver
-(full-rank tall systems, no rcond), so the port solves the normal equations
-through a pseudo-inverse instead, which also takes rank-deficient fits
-(few rings, many terms) and returns their minimum-norm solution as the JAX
-package's ``lstsq`` does.
+(full-rank tall systems, no rcond), so the port solves through the
+pseudo-inverse of the design matrix itself (an SVD), which also takes
+rank-deficient fits (few rings, many terms) and returns their minimum-norm
+solution as the JAX package's ``lstsq`` does. The normal equations are not
+formed: they square the condition number, which the best-fit sphere of a
+telescope (cond(A) ~1e8) cannot afford.
 """
 from __future__ import annotations
 
@@ -126,10 +128,10 @@ def zernike_design_matrix(zernike_type: str, num_terms: int, rho, phi):
 
 def lstsq_min_norm(A, b):
     """The minimum-norm least-squares solution of A x = b in float64, cast
-    back to b's dtype: x = pinv(A^T A) A^T b. Differentiable, and defined
-    for rank-deficient A on every device."""
+    back to b's dtype: x = pinv(A) b, through the SVD of A. Differentiable,
+    and defined for rank-deficient A on every device."""
     A64, b64 = A.to(torch.float64), b.to(torch.float64)
-    x = torch.linalg.pinv(A64.T @ A64) @ (A64.T @ b64)
+    x = torch.linalg.pinv(A64) @ b64
     return x.to(b.dtype)
 
 

@@ -1,6 +1,10 @@
-from .aspheres import EvenAsphere, OddAsphere
+from .aspheres import (Biconic, ChebyshevSag, EvenAsphere, OddAsphere,
+                       PolynomialXY, Toroidal)
 from .base import Geometry, conic_distance, newton_distance, normalize_normal
+from .extras import FresnelDesignedSag, FresnelZoneSag, ZernikeSag
 from .standard import Plane, StandardGeometry
 
 __all__ = ["Geometry", "conic_distance", "newton_distance", "normalize_normal",
-           "Plane", "StandardGeometry", "EvenAsphere", "OddAsphere"]
+           "Plane", "StandardGeometry", "EvenAsphere", "OddAsphere",
+           "PolynomialXY", "ChebyshevSag", "Biconic", "Toroidal", "ZernikeSag",
+           "FresnelZoneSag", "FresnelDesignedSag"]

@@ -1,16 +1,18 @@
-// K2, sub-slices (a), (b), the even/odd aspheres of (c) and the OPD modes
-// of (g): the vector-Jacobian product of K1 (gen_trace.cu) by per-ray
+// K2, sub-slices (a), (b), (c) but the Forbes sags, and the OPD modes of
+// (g): the vector-Jacobian product of K1 (gen_trace.cu) by per-ray
 // recompute and a per-surface reverse sweep, one ray per thread.
 //
 // One library per OPD mode: this file builds the plain mode's, and
 // gen_grad_kahan.cu and gen_grad_split.cu include it with GRAD_MODE set to
-// OPD_KAHAN and OPD_SPLIT. Each library holds its mode's 8 template
-// instances, and the three build in parallel.
+// OPD_KAHAN and OPD_SPLIT. Each library holds its mode's template instances
+// (4 stack depths x the variants: narrow, WIDE and, in the plain and Kahan
+// modes, FREEFORM), and the three build in parallel.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_grad.py::
-// _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic, plane
-// and even/odd aspheric surfaces that refract or reflect, with absorption in
-// the pre-material, tilt/decenter, radial and offset-radial apertures and
+// _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic,
+// plane, even/odd aspheric, XY-polynomial, Chebyshev, biconic, toroidal,
+// Zernike and thin Fresnel surfaces that refract or reflect, with absorption
+// in the pre-material, tilt/decenter, radial and offset-radial apertures and
 // simple coatings. The TPU kernel ran jax.vjp inside the kernel; here the
 // adjoint of every branch is written out by hand, and it follows the
 // derivative conventions of PyTorch autograd on the plain version
@@ -21,9 +23,15 @@
 //   - eps_guard passes the cotangent on |v| > eps and none on its clamp;
 //   - sign() has zero derivative; |v| has derivative sign(v), 0 at 0;
 //   - 1/sqrt(s) is differentiated as reciprocal(sqrt(s));
-//   - the asphere's Newton steps are not differentiated: only its live last
-//     step is, so the cotangent is the implicit-function-theorem one, and
-//     the conic warm start gets none;
+//   - a Newton sag's steps are not differentiated: only its live last step
+//     is, so the cotangent is the implicit-function-theorem one, and the
+//     conic warm start gets none. Each sag's adjoint (of its value and
+//     slopes, so through its second derivatives) serves the live step and
+//     the exit normal; the Chebyshev slope keeps the reference's missing
+//     1/norm factor, and its adjoint differentiates that slope as it is;
+//   - the thin Fresnel surfaces' base-plane root t = -z / N, and the
+//     designed facet's slope through focal_length and n_design (columns 24
+//     and 25);
 //   - the aperture mask passes the intensity cotangent inside and none
 //     outside, and gives the aperture extents none;
 //   - the Kahan update (opd, opd_c) <- (opd + (v - opd_c), ((opd + (v -
@@ -38,9 +46,10 @@
 // Outputs:
 //   dgen    [F, 16]    columns 0-6, 8, 9 (the rest are 0), summed over W
 //   dconsts [W, S, 32] columns 0-5; 6 on a coated surface; 8-19 on a tilted
-//                      or decentered one; 27 (the vertex gap) in the split
-//                      mode (the rest are 0)
-//   dacoef  [S, C]     the asphere terms' (the rest are 0), summed over W
+//                      or decentered one; 24-25 on a sag of kind GK_POLY and
+//                      up; 27 (the vertex gap) in the split mode (the rest
+//                      are 0)
+//   dacoef  [S, C]     the sag coefficients' (the rest are 0), summed over W
 //   dPx, dPy [n]       summed over W and F (optional)
 //
 // Design.
@@ -53,8 +62,9 @@
 //      it is indexed by the runtime surface number, so it lives in local
 //      memory (L1/L2), not in registers. Recompute from checkpoints would
 //      save that memory at O(S^2) arithmetic, and the kernel is bound by
-//      arithmetic (PERF.md). It is a template on WIDE too, as K1: the
-//      variant without (b) and (c) runs for conic/plane systems.
+//      arithmetic (PERF.md). It is a template on K1's variant too: the
+//      narrow one for conic/plane systems, WIDE for (b) and the even/odd
+//      aspheres, FREEFORM for the other sags of (c).
 //      The cotangents of x, y, z, L, M, N, opd are zeroed for lost rays (the
 //      transpose of _nanify8: a NaN cotangent from an unmasked consumer
 //      becomes 0); the intensity cotangent is not masked. The reverse sweep
@@ -65,8 +75,9 @@
 //      as they are made: a warp shuffle tree, then the 8 warp sums in order
 //      from shared memory, into one partial per block and quantity. The
 //      quantities ("slots") of surface k start at layout.qoff[k]: consts
-//      columns 0-5, then 6 if coated, then 8-19 if tilted, then its asphere
-//      terms, then column 27 in the split mode; dgen's 9 follow the last
+//      columns 0-5, then 6 if coated, then 8-19 if tilted, then its sag
+//      coefficients, then columns 24-25 on a sag of kind GK_POLY and up,
+//      then column 27 in the split mode; dgen's 9 follow the last
 //      surface's.
 //   2. gen_grad_reduce: one block per output element sums its partials in
 //      float64, each thread a fixed strided subset, then a fixed tree; the
@@ -100,7 +111,7 @@
 #define GBLOCK 256
 #define NWARP (GBLOCK / 32)
 #define NGEN 9        // gen columns with a cotangent: 0-6, 8, 9
-#define NDC 19        // consts columns with a cotangent: 0-6, 8-19
+#define NDC 21        // consts columns with a cotangent: 0-6, 8-19, 24-25
 #define RBLOCK 256    // threads of the reduction kernels
 
 // The flag words, where each surface's slots start (qoff[S]: dgen's), and
@@ -116,8 +127,14 @@ struct Adj {
     float x, y, z, L, M, N, inten, opd, opdc;
 };
 
+// the slots of columns 24-25: the sags of kind GK_POLY and up
+__host__ __device__ __forceinline__ int n_extra(int fl) {
+    return gkind_of(fl) >= GK_POLY ? 2 : 0;
+}
+
 __host__ __device__ __forceinline__ int n_slots(int fl) {
-    return 6 + ((fl & FLAG_COAT) ? 1 : 0) + ((fl & FLAG_CS) ? 12 : 0) + nu_of(fl);
+    return 6 + ((fl & FLAG_COAT) ? 1 : 0) + ((fl & FLAG_CS) ? 12 : 0) + ncoef_of(fl)
+           + n_extra(fl);
 }
 
 // Slot of consts column j of surface k, or -1 if it has no cotangent.
@@ -127,14 +144,16 @@ __device__ __forceinline__ int const_slot(const GradLayout& g, int k, int j) {
     if (j < 6) return g.qoff[k] + j;
     if (j == 6) return coat ? g.qoff[k] + 6 : -1;
     if (j >= 8 && j <= 19 && (fl & FLAG_CS)) return g.qoff[k] + 6 + coat + (j - 8);
+    if ((j == 24 || j == 25) && n_extra(fl))
+        return g.qoff[k] + 6 + coat + ((fl & FLAG_CS) ? 12 : 0) + ncoef_of(fl) + (j - 24);
     if (j == 27 && g.split) return g.qoff[k] + n_slots(fl);
     return -1;
 }
 
-// Slot of asphere term i of surface k, or -1.
+// Slot of sag coefficient i of surface k, or -1.
 __device__ __forceinline__ int acoef_slot(const GradLayout& g, int k, int i) {
     const int fl = g.f[k];
-    if (i >= nu_of(fl)) return -1;
+    if (i >= ncoef_of(fl)) return -1;
     return g.qoff[k] + 6 + ((fl & FLAG_COAT) ? 1 : 0) + ((fl & FLAG_CS) ? 12 : 0) + i;
 }
 
@@ -224,24 +243,397 @@ __device__ __forceinline__ void asphere_sag_adjoint(
     dyy += 2.0f * yy * dr2;
 }
 
+// ---- the freeform sags' adjoints -------------------------------------------
+// Each adds to (dxx, dyy) and to its parameters' cotangents those of its
+// inputs for the cotangents (ds, dgx, dgy) of its (s, gx, gy), as autograd
+// forms them through the plain version (kernels/gen_trace.py::_sag_grad).
+// The forward quantities that pick a branch are recomputed with K1's
+// intrinsics, so the branch is K1's.
+
+__device__ __forceinline__ void conic_base_adjoint(
+        float ri, float conic, float xx, float yy, float ds, float dgx,
+        float dgy, float& dxx, float& dyy, float& dri, float& dconic) {
+    asphere_sag_adjoint(ri, conic, nullptr, 0, false, xx, yy, ds, dgx, dgy,
+                        dxx, dyy, dri, dconic, nullptr);
+}
+
+// axis_conic: s = ((cv v) v) / (1 + sq), g = (cv v) / sq, sq = sqrt(arg > eps
+// ? arg : eps), arg = 1 - ((((1 + k) cv) cv) v) v
+__device__ __forceinline__ void axis_conic_adjoint(float cv, float k, float v,
+                                                   float ds, float dg,
+                                                   float& dv, float& dcv,
+                                                   float& dk) {
+    const float A1 = mul(add(1.0f, k), cv);
+    const float A2 = mul(A1, cv);
+    const float A3 = mul(A2, v);
+    const float arg = sub(1.0f, mul(A3, v));
+    const bool ok = arg > EPS_GUARD;
+    const float sq = sqt(ok ? arg : EPS_GUARD);
+    const float cvv = cv * v, den = 1.0f + sq;
+    const float s = cvv * v / den, g = cvv / sq;
+    const float dnum = ds / den;
+    const float dsq = -ds * s / den - dg * g / sq;
+    const float dcvv = dg / sq + dnum * v;
+    dv += dnum * cvv;
+    const float darg = ok ? dsq / (2.0f * sq) : 0.0f;
+    const float dA3 = -darg * v;
+    dv -= darg * A3;
+    const float dA2 = dA3 * v;
+    dv += dA3 * A2;
+    const float dA1 = dA2 * cv;
+    dcv += dA2 * A1;
+    dk += dA1 * cv;
+    dcv += dA1 * (1.0f + k);
+    dcv += dcvv * v;
+    dv += dcvv * cv;
+}
+
+// poly_sag_grad: s += C x^i y^j, gx += i C x^(i-1) y^j, gy += j C x^i y^(j-1)
+__device__ __forceinline__ void poly_sag_adjoint(
+        const float* c, const float* ac, int nu, int nv, float xx, float yy,
+        float ds, float dgx, float dgy, float& dxx, float& dyy, float& dri,
+        float& dconic, float* da) {
+    conic_base_adjoint(c[0], c[1], xx, yy, ds, dgx, dgy, dxx, dyy, dri, dconic);
+    float xi = 1.0f, xim1 = 0.0f, xim2 = 0.0f;
+    for (int i = 0; i < nu; ++i) {
+        const float fi = (float)i;
+        float yj = 1.0f, yjm1 = 0.0f, yjm2 = 0.0f;
+        for (int j = 0; j < nv; ++j) {
+            const float fj = (float)j;
+            const float cij = ac[i * nv + j];
+            da[i * nv + j] += ds * xi * yj + dgx * fi * xim1 * yj
+                              + dgy * fj * xi * yjm1;
+            dxx += cij * (ds * fi * xim1 * yj
+                          + dgx * fi * (fi - 1.0f) * xim2 * yj
+                          + dgy * fi * fj * xim1 * yjm1);
+            dyy += cij * (ds * fj * xi * yjm1 + dgx * fi * fj * xim1 * yjm1
+                          + dgy * fj * (fj - 1.0f) * xi * yjm2);
+            yjm2 = yjm1;
+            yjm1 = yj;
+            yj *= yy;
+        }
+        xim2 = xim1;
+        xim1 = xi;
+        xi *= xx;
+    }
+}
+
+// T_k(w), T'_k(w) and T''_k(w), k = 0, 1, ..., by the derivatives of the
+// recurrence T_k = 2w T_{k-1} - T_{k-2}
+struct Cheb2 {
+    float w, t0, t1, d0, d1, e0, e1;
+    int k;
+    __device__ __forceinline__ void start(float w_) {
+        w = w_;
+        k = 0;
+        t0 = d0 = e0 = d1 = e1 = 0.0f;
+        t1 = 1.0f;
+    }
+    __device__ __forceinline__ void next() {
+        ++k;
+        float tn = w, dn = 1.0f, en = 0.0f;
+        if (k > 1) {
+            tn = 2.0f * w * t1 - t0;
+            dn = 2.0f * t1 + 2.0f * w * d1 - d0;
+            en = 4.0f * d1 + 2.0f * w * e1 - e0;
+        }
+        t0 = t1;
+        t1 = tn;
+        d0 = d1;
+        d1 = dn;
+        e0 = e1;
+        e1 = en;
+    }
+};
+
+// cheb_sag_grad: s += C T_i(u) T_j(v), gx += C T'_i T_j, gy += C T_i T'_j
+// with u = x / nx, v = y / ny (the slopes without the 1/norm factor)
+__device__ __forceinline__ void cheb_sag_adjoint(
+        const float* c, const float* ac, int nu, int nv, float xx, float yy,
+        float ds, float dgx, float dgy, float& dxx, float& dyy, float& dri,
+        float& dconic, float& dnx, float& dny, float* da) {
+    conic_base_adjoint(c[0], c[1], xx, yy, ds, dgx, dgy, dxx, dyy, dri, dconic);
+    const float nx = c[24], ny = c[25];
+    const float u = xx / nx, v = yy / ny;
+    float du = 0.0f, dv = 0.0f;
+    Cheb2 tx;
+    tx.start(u);
+    for (int i = 0; i < nu; ++i) {
+        if (i > 0) tx.next();
+        Cheb2 ty;
+        ty.start(v);
+        for (int j = 0; j < nv; ++j) {
+            if (j > 0) ty.next();
+            const float cij = ac[i * nv + j];
+            da[i * nv + j] += ds * tx.t1 * ty.t1 + dgx * tx.d1 * ty.t1
+                              + dgy * tx.t1 * ty.d1;
+            du += cij * (ds * tx.d1 * ty.t1 + dgx * tx.e1 * ty.t1
+                         + dgy * tx.d1 * ty.d1);
+            dv += cij * (ds * tx.t1 * ty.d1 + dgx * tx.d1 * ty.d1
+                         + dgy * tx.t1 * ty.e1);
+        }
+    }
+    dxx += du / nx;
+    dnx -= du * u / nx;
+    dyy += dv / ny;
+    dny -= dv * v / ny;
+}
+
+// toroidal_sag_grad: the y-curve (zy, dzy), then s = R - sign(dz) root,
+// gx = ok ? sign(R) x / root : 0, gy = ok ? sign(R) dz dzy / root : 0 with
+// dz = R - zy, root = sqrt(ok ? dz^2 - x^2 : eps); at an infinite rotation
+// radius (s, gx, gy) = (zy, 0, dzy)
+__device__ __forceinline__ void toroidal_sag_adjoint(
+        const float* c, const float* ac, int nu, bool inf, float xx, float yy,
+        float ds, float dgx, float dgy, float& dxx, float& dyy, float& dri,
+        float& dconic, float& dR, float* da) {
+    float zy, dzy;
+    axis_conic(c[0], c[1], yy, zy, dzy);
+    const float y2 = mul(yy, yy);
+    {
+        float term = y2, dterm = yy;
+        for (int i = 0; i < nu; ++i) {
+            zy = add(zy, mul(ac[i], term));
+            dzy = add(dzy, mul(mul(2.0f * (float)(i + 1), ac[i]), dterm));
+            term = mul(term, y2);
+            dterm = mul(dterm, y2);
+        }
+    }
+    float dzy_s = ds, dzy_g = dgy;            // the cotangents of zy, dzy
+    if (!inf) {
+        const float R = c[24];
+        const float dz = sub(R, zy);
+        const float inside = sub(mul(dz, dz), mul(xx, xx));
+        const bool ok = inside > EPS_GUARD;
+        const float root = sqt(ok ? inside : EPS_GUARD);
+        const float sgn = dz >= 0.0f ? 1.0f : -1.0f;
+        const float sgn_r = R >= 0.0f ? 1.0f : -1.0f;
+        const float inv_root = 1.0f / root;
+        float droot = -ds * sgn, ddz = 0.0f, dinv = 0.0f;
+        dzy_g = 0.0f;
+        if (ok) {
+            dxx += dgx * sgn_r * inv_root;
+            dinv = sgn_r * (dgx * xx + dgy * dz * dzy);
+            ddz = dgy * sgn_r * dzy * inv_root;
+            dzy_g = dgy * sgn_r * dz * inv_root;
+        }
+        droot -= dinv * inv_root * inv_root;
+        const float dinside = ok ? droot / (2.0f * root) : 0.0f;
+        ddz += 2.0f * dz * dinside;
+        dxx -= 2.0f * xx * dinside;
+        dR += ds + ddz;
+        dzy_s = -ddz;
+    }
+    // zy = axis(y) + sum_i C_i y^(2(i+1)), dzy = axis'(y) + sum_i 2(i+1) C_i
+    // y^(2i+1)
+    axis_conic_adjoint(c[0], c[1], yy, dzy_s, dzy_g, dyy, dri, dconic);
+    float term = y2, dterm = yy, eterm = 1.0f;   // y^(2i+2), y^(2i+1), y^(2i)
+    for (int i = 0; i < nu; ++i) {
+        const float kk = 2.0f * (float)(i + 1);
+        da[i] += dzy_s * term + dzy_g * kk * dterm;
+        dyy += ac[i] * kk * (dzy_s * dterm + dzy_g * (kk - 1.0f) * eterm);
+        term *= y2;
+        dterm *= y2;
+        eterm *= y2;
+    }
+}
+
+// R_j(rho) and its first two derivatives from the term's table row
+__device__ __forceinline__ void zernike_radial(const float* t, float rho,
+                                               float& R, float& R1,
+                                               float& R2) {
+    R = R1 = R2 = 0.0f;
+    const int nc = (int)t[3];
+    for (int k = 0; k < nc; ++k) {
+        const int p = (int)t[4 + 3 * k];
+        const float coef = t[5 + 3 * k], pc = t[6 + 3 * k];
+        if (p == 0) {
+            R += coef;
+            continue;
+        }
+        float pw = 1.0f;                       // rho^(p - 1)
+        for (int q = 1; q < p; ++q) pw *= rho;
+        R += coef * pw * rho;
+        R1 += pc * pw;
+        if (p >= 2) R2 += (float)(p - 1) * pc * (pw / rho);
+    }
+}
+
+// The angular factor A of a term of order m at (cos, sin) = (c, s), its phi
+// derivative Ap, and the partials of both by c and s: T_mu(c) and s
+// U_{mu-1}(c), mu = |m|, as the forward's recurrences make them.
+struct Ang {
+    float a, ap, a_c, a_s, ap_c, ap_s;
+};
+
+__device__ __forceinline__ Ang zernike_angular(int m, float c, float s) {
+    Ang o = {1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (m == 0) return o;
+    const int mu = m > 0 ? m : -m;
+    float um2 = 0.0f, um1 = 1.0f, dm2 = 0.0f, dm1 = 0.0f;  // U, U' at k-1, k
+    for (int k = 1; k < mu; ++k) {
+        const float un = 2.0f * c * um1 - um2;
+        const float dn = 2.0f * um1 + 2.0f * c * dm1 - dm2;
+        um2 = um1;
+        um1 = un;
+        dm2 = dm1;
+        dm1 = dn;
+    }
+    const float T = c * um1 - um2, fm = (float)mu;
+    if (m > 0) {                               // A = T_mu, Ap = -mu sin_mu
+        o.a = T;
+        o.a_c = fm * um1;
+        o.ap = -fm * s * um1;
+        o.ap_c = -fm * s * dm1;
+        o.ap_s = -fm * um1;
+    } else {                                   // A = sin_mu, Ap = mu T_mu
+        o.a = s * um1;
+        o.a_c = s * dm1;
+        o.a_s = um1;
+        o.ap = fm * T;
+        o.ap_c = fm * fm * um1;
+    }
+    return o;
+}
+
+// zernike_sag_grad: s += sum_j c_j R_j A_j; gx += Zr x irs / nr - Zp y irs^2,
+// gy += Zr y irs / nr + Zp x irs^2 with Zr = sum_j c_j R_j' A_j, Zp = sum_j
+// c_j R_j A_j', rho = r / nr, (cos, sin) = (x, y) irs, irs = 1 / max(r,
+// 1e-12), c_j = C_j norm_j
+__device__ __forceinline__ void zernike_sag_adjoint(
+        const float* c, const float* ac, int nu, const float* zt, float xx,
+        float yy, float ds, float dgx, float dgy, float& dxx, float& dyy,
+        float& dri, float& dconic, float& dnr, float* da) {
+    conic_base_adjoint(c[0], c[1], xx, yy, ds, dgx, dgy, dxx, dyy, dri, dconic);
+    if (nu == 0) return;
+    const float nr = c[24];
+    const float r = sqt(add(mul(xx, xx), mul(yy, yy)));
+    const float rs = fmaxf(r, 1e-12f);
+    const float rho = r / nr, irs = 1.0f / rs;
+    const float cost = xx * irs, sint = yy * irs;
+    float Zr = 0.0f, Zp = 0.0f;
+    for (int j = 0; j < nu; ++j) {
+        const float* t = zt + j * ZT_W;
+        float R, R1, R2;
+        zernike_radial(t, rho, R, R1, R2);
+        const Ang A = zernike_angular((int)t[1], cost, sint);
+        const float cj = ac[j] * t[2];
+        Zr += cj * R1 * A.a;
+        Zp += cj * R * A.ap;
+    }
+    const float gr = dgx * xx + dgy * yy, gp = dgy * xx - dgx * yy;
+    const float dZs = ds, dZr = gr * irs / nr, dZp = gp * irs * irs;
+    dxx += dgx * Zr * irs / nr + dgy * Zp * irs * irs;
+    dyy += dgy * Zr * irs / nr - dgx * Zp * irs * irs;
+    const float dirs = Zr * gr / nr + 2.0f * irs * Zp * gp;
+    dnr -= Zr * gr * irs / (nr * nr);
+    float drho = 0.0f, dcost = 0.0f, dsint = 0.0f;
+    for (int j = 0; j < nu; ++j) {
+        const float* t = zt + j * ZT_W;
+        float R, R1, R2;
+        zernike_radial(t, rho, R, R1, R2);
+        const Ang A = zernike_angular((int)t[1], cost, sint);
+        const float norm = t[2], cj = ac[j] * norm;
+        da[j] += norm * (dZs * R * A.a + dZr * R1 * A.a + dZp * R * A.ap);
+        drho += cj * (dZs * R1 * A.a + dZr * R2 * A.a + dZp * R1 * A.ap);
+        const float dA = cj * (dZs * R + dZr * R1), dAp = cj * dZp * R;
+        dcost += dA * A.a_c + dAp * A.ap_c;
+        dsint += dA * A.a_s + dAp * A.ap_s;
+    }
+    float dr = drho / nr;
+    dnr -= drho * rho / nr;
+    dxx += dcost * irs;
+    dyy += dsint * irs;
+    const float drs = -(dcost * cost + dsint * sint) * irs - dirs * irs * irs;
+    if (r > 1e-12f) dr += drs;
+    const float dr2 = dr / (2.0f * r);
+    dxx += 2.0f * xx * dr2;
+    dyy += 2.0f * yy * dr2;
+}
+
+// designed_slope: (dfdx, dfdy) = m (x, y) / rs, m = -P / Q, P = r / hyp,
+// Q = n_design - f / hyp, hyp = sqrt(r^2 + f^2), rs = max(r, 1e-12)
+__device__ __forceinline__ void designed_slope_adjoint(
+        const float* c, float x, float y, float ddfdx, float ddfdy,
+        float& dx, float& dy, float& df, float& dnd) {
+    const float r2 = add(mul(x, x), mul(y, y));
+    const float r = sqt(r2);
+    const float rs = fmaxf(r, 1e-12f);
+    const float f = c[24];
+    const float hyp = sqt(add(r2, mul(f, f)));
+    const float P = r / hyp, Q = c[25] - f / hyp;
+    const float m = -P / Q;
+    const float gxy = ddfdx * x + ddfdy * y;
+    const float dm = gxy / rs;
+    dx += ddfdx * m / rs;
+    dy += ddfdy * m / rs;
+    const float drs = -m * gxy / (rs * rs);
+    const float dP = -dm / Q, dQ = dm * P / (Q * Q);
+    dnd += dQ;
+    df -= dQ / hyp;
+    float dhyp = dQ * f / (hyp * hyp) - dP * P / hyp;
+    float dr = dP / hyp;
+    df += dhyp * f / hyp;
+    float dr2 = dhyp / (2.0f * hyp);
+    if (r > 1e-12f) dr += drs;
+    dr2 += dr / (2.0f * r);
+    dx += 2.0f * x * dr2;
+    dy += 2.0f * y * dr2;
+}
+
+// The Newton sags' adjoint dispatch (sag_grad's): d24, d25 take the
+// cotangents of columns 24 and 25.
+template <int VAR>
+__device__ __forceinline__ void sag_adjoint(
+        int gk, int fl, const float* c, const float* ac, const float* ztab,
+        float xx, float yy, float ds, float dgx, float dgy, float& dxx,
+        float& dyy, float& dri, float& dconic, float& d24, float& d25,
+        float* da) {
+    const int nu = nu_of(fl);
+    if (VAR != VAR_FREEFORM || gk == GK_EVEN || gk == GK_ODD)
+        asphere_sag_adjoint(c[0], c[1], ac, nu, gk == GK_ODD, xx, yy, ds, dgx,
+                            dgy, dxx, dyy, dri, dconic, da);
+    else if (gk == GK_POLY)
+        poly_sag_adjoint(c, ac, nu, nv_of(fl), xx, yy, ds, dgx, dgy, dxx, dyy,
+                         dri, dconic, da);
+    else if (gk == GK_CHEB)
+        cheb_sag_adjoint(c, ac, nu, nv_of(fl), xx, yy, ds, dgx, dgy, dxx, dyy,
+                         dri, dconic, d24, d25, da);
+    else if (gk == GK_BICONIC) {
+        axis_conic_adjoint(c[0], c[1], yy, ds, dgy, dyy, dri, dconic);
+        axis_conic_adjoint(c[24], c[25], xx, ds, dgx, dxx, d24, d25);
+    } else if (gk == GK_TORUS || gk == GK_TORUS_INF)
+        toroidal_sag_adjoint(c, ac, nu, gk == GK_TORUS_INF, xx, yy, ds, dgx,
+                             dgy, dxx, dyy, dri, dconic, d24, da);
+    else
+        zernike_sag_adjoint(c, ac, nu,
+                            ztab + (size_t)basis_of(fl) * MAX_TERMS * ZT_W, xx,
+                            yy, ds, dgx, dgy, dxx, dyy, dri, dconic, d24, da);
+}
+
 // Adjoint of surface_step. ``in`` is the surface's input state, ``tp`` its
 // recomputed intermediates. ``a`` holds the cotangent of the output state on
 // entry and of the input state on return; dc receives the cotangents of
-// consts columns 0-6 and 8-19 (dc[7 + j - 8] for column j >= 8), da those of
-// the surface's asphere terms, dgap that of column 27 (the split mode).
-template <bool WIDE, int MODE>
+// consts columns 0-6, 8-19 (dc[7 + j - 8] for column j in 8-19) and 24-25
+// (dc[19], dc[20]), da those of the surface's sag coefficients, dgap that of
+// column 27 (the split mode).
+template <int VAR, int MODE>
 __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
-                                                int fl, float sigma,
+                                                const float* ztab, int fl,
+                                                float sigma,
                                                 const RayState& in,
                                                 const SurfTape& tp, Adj& a,
                                                 float dc[NDC], float* da,
                                                 float& dgap) {
+    constexpr bool WIDE = VAR != VAR_NARROW;
+    constexpr bool FF = VAR == VAR_FREEFORM;
     const float ri = c[0], conic = c[1];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
     const bool cs = WIDE && (fl & FLAG_CS);
     const int gk = WIDE ? gkind_of(fl) : GK_CONIC;
-    const bool odd = gk == GK_ODD;
-    const int nu = WIDE ? nu_of(fl) : 0;
+    const bool fresnel = FF && (gk == GK_FZONE || gk == GK_FDESIGNED);
+    const bool newton = gk != GK_CONIC && !fresnel;
+    const bool conic_like = gk == GK_CONIC || (FF && gk == GK_FZONE);
     // the incoming direction and the landing point, in the surface's frame
     const float L = tp.Ll, M = tp.Ml, N = tp.Nl;
     const float x2 = tp.x2, y2 = tp.y2;
@@ -296,7 +688,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
 
     // ---- refract or reflect ------------------------------------------------
     float aL = 0.0f, aM = 0.0f, aN = 0.0f;     // cotangents of L, M, N in
-    if (gk == GK_CONIC && (fl & FLAG_PLANE)) {
+    if (conic_like && (fl & FLAG_PLANE)) {
         if (fl & FLAG_REFL) {                  // N_out = -N
             aL = aLo;
             aM = aMo;
@@ -367,10 +759,14 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         const float dsum = dsn / (2.0f * tp.sn);
         ddfdx += 2.0f * tp.dfdx * dsum;
         ddfdy += 2.0f * tp.dfdy * dsum;
-        if (gk != GK_CONIC) {
-            // (dfdx, dfdy) = the asphere's slope at (x2, y2)
-            asphere_sag_adjoint(ri, conic, ac, nu, odd, x2, y2, 0.0f, ddfdx,
-                                ddfdy, ax2, ay2, dri, dconic, da);
+        if (FF && gk == GK_FDESIGNED) {
+            // (dfdx, dfdy) = the designed facet's slope at (x2, y2)
+            designed_slope_adjoint(c, x2, y2, ddfdx, ddfdy, ax2, ay2, dc[19],
+                                   dc[20]);
+        } else if (!conic_like) {
+            // (dfdx, dfdy) = the Newton sag's slope at (x2, y2)
+            sag_adjoint<VAR>(gk, fl, c, ac, ztab, x2, y2, 0.0f, ddfdx, ddfdy,
+                             ax2, ay2, dri, dconic, dc[19], dc[20], da);
         } else {
             // dfdx = (x2 * ri) * inv_root
             const float xr = x2 * ri, yr = y2 * ri;
@@ -482,7 +878,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     float ax = ax2, ay = ay2, az1 = az2;
 
     // ---- intersection ----------------------------------------------------------
-    if (gk != GK_CONIC) {
+    if (newton) {
         // the live Newton step t = t_it - f / eps_guard(dd), with f = s(xx,
         // yy) - zz, dd = (gx L + gy M) - N at (xx, yy, zz) = (x, y, z1) +
         // t_it (L, M, N); t_it and the warm start get no cotangent
@@ -494,8 +890,8 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         aM += ddd * tp.ngy;
         aN -= ddd;
         float dxx = 0.0f, dyy = 0.0f;
-        asphere_sag_adjoint(ri, conic, ac, nu, odd, tp.xx, tp.yy, df,
-                            ddd * L, ddd * M, dxx, dyy, dri, dconic, da);
+        sag_adjoint<VAR>(gk, fl, c, ac, ztab, tp.xx, tp.yy, df, ddd * L,
+                         ddd * M, dxx, dyy, dri, dconic, dc[19], dc[20], da);
         const float dzz = -df;
         ax += dxx;
         ay += dyy;
@@ -503,7 +899,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         aL += dxx * tp.t_it;
         aM += dyy * tp.t_it;
         aN += dzz * tp.t_it;
-    } else if (fl & FLAG_PLANE) {              // t = (-z1) / N
+    } else if ((fl & FLAG_PLANE) || fresnel) { // t = (-z1) / N
         az1 -= dt / N;
         aN -= dt * t / N;
     } else {
@@ -603,10 +999,11 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     dc[5] = dalpha;
 }
 
-template <int MAXS, bool WIDE, int MODE>
+template <int MAXS, int VAR, int MODE>
 __global__ void __launch_bounds__(GBLOCK)
 gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
-                const float* __restrict__ acoef, const float* __restrict__ px,
+                const float* __restrict__ acoef, const float* __restrict__ ztab,
+                const float* __restrict__ px,
                 const float* __restrict__ py, const float* __restrict__ cot,
                 float* __restrict__ part, float* __restrict__ dpx_wf,
                 float* __restrict__ dpy_wf, const GradLayout layout, int S,
@@ -646,8 +1043,8 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         st[k][5] = s.N;
         st[k][6] = s.inten;
         SurfTape tp;
-        surface_step<WIDE, MODE>(sc + k * CONST_W, acoef + (size_t)k * C,
-                                 layout.f[k], sigma, s, tp);
+        surface_step<VAR, MODE>(sc + k * CONST_W, acoef + (size_t)k * C, ztab,
+                                layout.f[k], sigma, s, tp);
         if (layout.f[k] & FLAG_REFL) sigma = -sigma;
     }
 
@@ -679,6 +1076,7 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     }
 
     // ---- surfaces in reverse -----------------------------------------------
+    constexpr bool WIDE = VAR != VAR_NARROW;
     for (int k = S - 1; k >= 0; --k) {
         const float* c = sc + k * CONST_W;
         const float* ac = acoef + (size_t)k * C;
@@ -697,13 +1095,14 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         in.valid = true;
         RayState out = in;
         SurfTape tp;
-        surface_step<WIDE, MODE>(c, ac, fl, sigma, out, tp);
+        surface_step<VAR, MODE>(c, ac, ztab, fl, sigma, out, tp);
         float dc[NDC];
         float da[WIDE ? MAX_TERMS : 1];
-        const int nu = WIDE ? nu_of(fl) : 0;
+        const int nu = WIDE ? ncoef_of(fl) : 0;
         for (int j = 0; j < nu; ++j) da[j] = 0.0f;
         float dgap;
-        surface_adjoint<WIDE, MODE>(c, ac, fl, sigma, in, tp, a, dc, da, dgap);
+        surface_adjoint<VAR, MODE>(c, ac, ztab, fl, sigma, in, tp, a, dc, da,
+                                   dgap);
         if (MODE == OPD_SPLIT) {
             const float v = warp_sum(active ? dgap : 0.0f);
             if (lane == 0) sw[warp * nq + layout.qoff[k] + n_slots(fl)] = v;
@@ -723,7 +1122,7 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
             }
             if (fl & FLAG_CS) {
 #pragma unroll
-                for (int j = 7; j < NDC; ++j) {
+                for (int j = 7; j < 19; ++j) {        // columns 8-19
                     const float v = warp_sum(active ? dc[j] : 0.0f);
                     if (lane == 0) sw[warp * nq + q + j - 7] = v;
                 }
@@ -732,6 +1131,14 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
             for (int j = 0; j < nu; ++j) {
                 const float v = warp_sum(active ? da[j] : 0.0f);
                 if (lane == 0) sw[warp * nq + q + j] = v;
+            }
+            if (VAR == VAR_FREEFORM && n_extra(fl)) {
+                q += nu;
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const float v = warp_sum(active ? dc[19 + j] : 0.0f);
+                    if (lane == 0) sw[warp * nq + q + j] = v;
+                }
             }
         }
     }
@@ -872,12 +1279,12 @@ static bool make_layout(const int32_t* flags, int S, int C, GradLayout& g) {
     g.split = GRAD_MODE == OPD_SPLIT;
     for (int k = 0; k < MAX_SURF; ++k) {
         g.f[k] = k < S ? flags[k] : 0;
-        if (nu_of(g.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS)) return false;
+        if (ncoef_of(g.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS)) return false;
         g.qoff[k] = q;
         if (k < S) q += n_slots(g.f[k]) + g.split;
     }
     g.qoff[MAX_SURF] = q;
-    return !g.split || split_ok(g.f, S);
+    return kinds_ok(g.f, S) && (!g.split || split_ok(g.f, S));
 }
 
 // Floats of the partials buffer gen_grad_launch needs (-1 for bad flags or
@@ -891,58 +1298,60 @@ extern "C" long long gen_grad_partials_size(const int32_t* flags, int S, int F,
     return (long long)(g.qoff[S] + NGEN) * W * F * n_blocks(n);
 }
 
-template <int MAXS, bool WIDE>
+template <int MAXS, int VAR>
 static int launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
                          const float* consts, const float* acoef,
-                         const float* px, const float* py, const float* cot,
+                         const float* ztab, const float* px, const float* py,
+                         const float* cot,
                          float* part, float* dpx_wf, float* dpy_wf,
                          const GradLayout& g, int S, int F, int W, int C,
                          long long n, int nblk, int final_prop) {
     const size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
     if (shmem > 48 * 1024) {
         const int err = (int)cudaFuncSetAttribute(
-            gen_grad_kernel<MAXS, WIDE, GRAD_MODE>,
+            gen_grad_kernel<MAXS, VAR, GRAD_MODE>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
         if (err) return err;
     }
-    gen_grad_kernel<MAXS, WIDE, GRAD_MODE><<<grid, GBLOCK, shmem, stream>>>(
-        gen, consts, acoef, px, py, cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
-        n, nblk, final_prop);
+    gen_grad_kernel<MAXS, VAR, GRAD_MODE><<<grid, GBLOCK, shmem, stream>>>(
+        gen, consts, acoef, ztab, px, py, cot, part, dpx_wf, dpy_wf, g, S, F,
+        W, C, n, nblk, final_prop);
     return (int)cudaGetLastError();
 }
 
-template <bool WIDE>
+template <int VAR>
 static int launch_grad(dim3 grid, cudaStream_t st, const float* gen,
                        const float* consts, const float* acoef,
-                       const float* px, const float* py, const float* cot,
-                       float* part, float* dpx_wf, float* dpy_wf,
-                       const GradLayout& g, int S, int F, int W, int C,
-                       long long n, int nblk, int final_prop) {
+                       const float* ztab, const float* px, const float* py,
+                       const float* cot, float* part, float* dpx_wf,
+                       float* dpy_wf, const GradLayout& g, int S, int F, int W,
+                       int C, long long n, int nblk, int final_prop) {
     if (S <= 8)
-        return launch_bucket<8, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
-                                      part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                      nblk, final_prop);
+        return launch_bucket<8, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
+                                     cot, part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                     nblk, final_prop);
     if (S <= 16)
-        return launch_bucket<16, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
-                                       part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                       nblk, final_prop);
+        return launch_bucket<16, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
+                                      cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
+                                      n, nblk, final_prop);
     if (S <= 32)
-        return launch_bucket<32, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
-                                       part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                       nblk, final_prop);
-    return launch_bucket<64, WIDE>(grid, st, gen, consts, acoef, px, py, cot,
-                                   part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                   nblk, final_prop);
+        return launch_bucket<32, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
+                                      cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
+                                      n, nblk, final_prop);
+    return launch_bucket<64, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
+                                  cot, part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                  nblk, final_prop);
 }
 
 // Launch the three kernels on ``stream``; returns cudaGetLastError() after
 // each launch (0 on success). flags is a host array of S words; acoef has C
-// floats per surface; opd_mode must be this library's GRAD_MODE; part holds
-// gen_grad_partials_size floats;
+// floats per surface; ztab is the device Zernike table; opd_mode must be
+// this library's GRAD_MODE; part holds gen_grad_partials_size floats;
 // dpx_wf/dpy_wf hold W*F*n floats each, or are null (then dpx/dpy are not
 // written). Allocates nothing and does not synchronise.
 extern "C" int gen_grad_launch(const float* gen, const float* consts,
-                               const float* acoef, const float* px,
+                               const float* acoef, const float* ztab,
+                               const float* px,
                                const float* py, const float* cot, float* part,
                                float* dpx_wf, float* dpy_wf, float* dgen,
                                float* dconsts, float* dacoef, float* dpx,
@@ -957,11 +1366,24 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
     cudaStream_t st = (cudaStream_t)stream;
     const int nblk = n_blocks(n);
     const dim3 grid((unsigned)nblk, (unsigned)F, (unsigned)W);
-    int err = needs_wide(g.f, S)
-        ? launch_grad<true>(grid, st, gen, consts, acoef, px, py, cot, part,
-                            dpx_wf, dpy_wf, g, S, F, W, C, n, nblk, final_prop)
-        : launch_grad<false>(grid, st, gen, consts, acoef, px, py, cot, part,
-                             dpx_wf, dpy_wf, g, S, F, W, C, n, nblk, final_prop);
+    const int var = variant_of(g.f, S);
+    int err = 0;
+    if constexpr (GRAD_MODE != OPD_SPLIT) {
+        // the split mode takes no freeform sag (make_layout), so its
+        // FREEFORM variant is not built
+        if (var == VAR_FREEFORM)
+            err = launch_grad<VAR_FREEFORM>(grid, st, gen, consts, acoef, ztab,
+                                            px, py, cot, part, dpx_wf, dpy_wf, g,
+                                            S, F, W, C, n, nblk, final_prop);
+    }
+    if (var == VAR_WIDE)
+        err = launch_grad<VAR_WIDE>(grid, st, gen, consts, acoef, ztab, px, py,
+                                    cot, part, dpx_wf, dpy_wf, g, S, F, W, C, n,
+                                    nblk, final_prop);
+    else if (var == VAR_NARROW)
+        err = launch_grad<VAR_NARROW>(grid, st, gen, consts, acoef, ztab, px,
+                                      py, cot, part, dpx_wf, dpy_wf, g, S, F, W,
+                                      C, n, nblk, final_prop);
     if (err) return err;
     const long long n_out = (long long)W * S * CONST_W + (long long)F * GEN_W
                             + (long long)S * C;

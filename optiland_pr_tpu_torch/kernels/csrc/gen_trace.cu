@@ -1,14 +1,15 @@
-// K1, sub-slices (a), (b), the even/odd aspheres of (c) and the OPD modes of
+// K1, sub-slices (a), (b), (c) but the Forbes sags, and the OPD modes of
 // (g): fused ray generation + surface stack + image propagation, one ray per
 // thread.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_trace.py::
 // _pallas_gen_trace_2d (body _gen_kernel -> _gen_pipeline = _gen_prologue,
-// _surface_step per surface, _gen_epilogue, _nanify8) for conic, plane and
-// even/odd aspheric surfaces that refract or reflect, with absorption in the
+// _surface_step per surface, _gen_epilogue, _nanify8) for conic, plane,
+// even/odd aspheric, XY-polynomial, Chebyshev, biconic, toroidal, Zernike
+// and thin Fresnel surfaces that refract or reflect, with absorption in the
 // pre-material, tilt/decenter, radial and offset-radial apertures and simple
 // coatings, with the plain, Kahan-compensated or split OPD sum
-// (gen_trace_common.cuh describes the modes). The device code of the three
+// (gen_trace_common.cuh describes the sags and the modes). The device code of the three
 // stages is gen_trace_common.cuh, which the backward kernel (gen_grad.cu)
 // shares.
 //
@@ -22,10 +23,11 @@
 // the same word: a broadcast), keeps the ray state in registers through the
 // whole stack, masks the ragged tail, and writes the 8 outputs once. The
 // surface loop branches on a flag word that is uniform across the grid, so
-// no warp diverges on it. The asphere terms are read from device memory
-// (every thread of a block the same word: cached broadcasts). Two variants
-// (gen_trace_common.cuh): the host launches the WIDE one only for a system
-// with a tilt, an aperture, a coating or an asphere.
+// no warp diverges on it. The sag coefficients and the Zernike table are
+// read from device memory (every thread of a block the same word: cached
+// broadcasts). Three variants (gen_trace_common.cuh): the host launches the
+// WIDE one for a system with a tilt, an aperture, a coating or an even/odd
+// asphere, the FREEFORM one for a system with another sag of (c).
 //
 // Bounds on an H100: the kernel reads the 8 B of each pupil sample and
 // writes 32 B per ray; at 36M rays (3 fields x 3 wavelengths x 4M) that is
@@ -41,15 +43,19 @@
 // deviation with two divisions, the compensated sum and the sag refresh
 // with a division and a square root) and 15 per plane, and one register
 // for the compensation; the plain mode compiles the code that ran before
-// them (measured on an H100: split +36% on the Cooke triplet, PERF.md).
+// them (measured on an H100: split +36% on the Cooke triplet, PERF.md). The
+// freeform sags are bound by operations too: each Newton evaluation of a
+// 4 x 4 Chebyshev grid is ~17 operations of the conic base and ~130 of the
+// grid and its recurrences, 10 evaluations a surface.
 #include "gen_trace_common.cuh"
 
 #define BLOCK 256
 
-template <bool WIDE, int MODE>
+template <int VAR, int MODE>
 __global__ void __launch_bounds__(BLOCK)
 gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
-                 const float* __restrict__ acoef, const float* __restrict__ px,
+                 const float* __restrict__ acoef, const float* __restrict__ ztab,
+                 const float* __restrict__ px,
                  const float* __restrict__ py, float* __restrict__ out,
                  const SurfFlags flags, int S, int F, int W, int C, long long n,
                  int final_prop) {
@@ -70,8 +76,8 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     float sigma = 1.0f;
     for (int k = 0; k < S; ++k) {
         SurfTape tp;
-        surface_step<WIDE, MODE>(sc + k * CONST_W, acoef + (size_t)k * C,
-                                 flags.f[k], sigma, s, tp);
+        surface_step<VAR, MODE>(sc + k * CONST_W, acoef + (size_t)k * C, ztab,
+                                flags.f[k], sigma, s, tp);
         if (flags.f[k] & FLAG_REFL) sigma = -sigma;
     }
     gen_epilogue(sg, final_prop, s);
@@ -92,35 +98,48 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     out[7 * plane + o] = s.opd;
 }
 
-template <bool WIDE, int MODE>
+template <int VAR, int MODE>
 static void launch(dim3 grid, cudaStream_t st, const float* gen,
-                   const float* consts, const float* acoef, const float* px,
-                   const float* py, float* out, const SurfFlags& fl, int S,
-                   int F, int W, int C, long long n, int final_prop) {
-    gen_trace_kernel<WIDE, MODE><<<grid, BLOCK, 0, st>>>(
-        gen, consts, acoef, px, py, out, fl, S, F, W, C, n, final_prop);
+                   const float* consts, const float* acoef, const float* ztab,
+                   const float* px, const float* py, float* out,
+                   const SurfFlags& fl, int S, int F, int W, int C, long long n,
+                   int final_prop) {
+    gen_trace_kernel<VAR, MODE><<<grid, BLOCK, 0, st>>>(
+        gen, consts, acoef, ztab, px, py, out, fl, S, F, W, C, n, final_prop);
 }
 
+// the split mode takes no freeform sag (split_ok), so its FREEFORM variant
+// is not built
 template <int MODE>
-static void launch_mode(bool wide, dim3 grid, cudaStream_t st,
+static void launch_mode(int var, dim3 grid, cudaStream_t st,
                         const float* gen, const float* consts,
-                        const float* acoef, const float* px, const float* py,
-                        float* out, const SurfFlags& fl, int S, int F, int W,
-                        int C, long long n, int final_prop) {
-    if (wide)
-        launch<true, MODE>(grid, st, gen, consts, acoef, px, py, out, fl, S,
-                           F, W, C, n, final_prop);
+                        const float* acoef, const float* ztab, const float* px,
+                        const float* py, float* out, const SurfFlags& fl,
+                        int S, int F, int W, int C, long long n,
+                        int final_prop) {
+    if constexpr (MODE != OPD_SPLIT) {
+        if (var == VAR_FREEFORM) {
+            launch<VAR_FREEFORM, MODE>(grid, st, gen, consts, acoef, ztab, px,
+                                       py, out, fl, S, F, W, C, n, final_prop);
+            return;
+        }
+    }
+    if (var == VAR_WIDE)
+        launch<VAR_WIDE, MODE>(grid, st, gen, consts, acoef, ztab, px, py, out,
+                               fl, S, F, W, C, n, final_prop);
     else
-        launch<false, MODE>(grid, st, gen, consts, acoef, px, py, out, fl, S,
-                            F, W, C, n, final_prop);
+        launch<VAR_NARROW, MODE>(grid, st, gen, consts, acoef, ztab, px, py,
+                                 out, fl, S, F, W, C, n, final_prop);
 }
 
 // Launch on ``stream``; returns cudaGetLastError() (0 on success). flags is a
-// host array of S words; acoef has C floats per surface; opd_mode is
-// OPD_PLAIN, OPD_KAHAN or OPD_SPLIT (the last for untilted conic/plane
-// stacks only). Allocates nothing and does not synchronise.
+// host array of S words; acoef has C floats per surface; ztab is the device
+// Zernike table; opd_mode is OPD_PLAIN, OPD_KAHAN or OPD_SPLIT (the last for
+// untilted conic/plane stacks only). Allocates nothing and does not
+// synchronise.
 extern "C" int gen_trace_launch(const float* gen, const float* consts,
-                                const float* acoef, const float* px,
+                                const float* acoef, const float* ztab,
+                                const float* px,
                                 const float* py, float* out,
                                 const int32_t* flags, int S, int F, int W,
                                 int C, long long n, int final_prop,
@@ -131,22 +150,22 @@ extern "C" int gen_trace_launch(const float* gen, const float* consts,
     SurfFlags fl;
     for (int k = 0; k < MAX_SURF; ++k) {
         fl.f[k] = k < S ? flags[k] : 0;
-        if (nu_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS))
+        if (ncoef_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS))
             return (int)cudaErrorInvalidValue;
     }
-    if (opd_mode == OPD_SPLIT && !split_ok(fl.f, S))
+    if (!kinds_ok(fl.f, S) || (opd_mode == OPD_SPLIT && !split_ok(fl.f, S)))
         return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK), (unsigned)F, (unsigned)W);
-    const bool wide = needs_wide(fl.f, S);
+    const int var = variant_of(fl.f, S);
     cudaStream_t st = (cudaStream_t)stream;
     if (opd_mode == OPD_SPLIT)
-        launch_mode<OPD_SPLIT>(wide, grid, st, gen, consts, acoef, px, py, out,
-                               fl, S, F, W, C, n, final_prop);
+        launch_mode<OPD_SPLIT>(var, grid, st, gen, consts, acoef, ztab, px, py,
+                               out, fl, S, F, W, C, n, final_prop);
     else if (opd_mode == OPD_KAHAN)
-        launch_mode<OPD_KAHAN>(wide, grid, st, gen, consts, acoef, px, py, out,
-                               fl, S, F, W, C, n, final_prop);
+        launch_mode<OPD_KAHAN>(var, grid, st, gen, consts, acoef, ztab, px, py,
+                               out, fl, S, F, W, C, n, final_prop);
     else
-        launch_mode<OPD_PLAIN>(wide, grid, st, gen, consts, acoef, px, py, out,
-                               fl, S, F, W, C, n, final_prop);
+        launch_mode<OPD_PLAIN>(var, grid, st, gen, consts, acoef, ztab, px, py,
+                               out, fl, S, F, W, C, n, final_prop);
     return (int)cudaGetLastError();
 }

@@ -2,8 +2,11 @@
 // backward kernel K2 (gen_grad.cu): the launch prologue, the surface step
 // and the image epilogue, for sub-slices (a) conic and plane surfaces that
 // refract, reflect and absorb, (b) tilt/decenter, radial and offset-radial
-// apertures and simple coatings, the even/odd aspheres of (c), and the OPD
-// modes of (g): the Kahan-compensated sum and the split-OPD accumulation.
+// apertures and simple coatings, (c) the Newton sags (even/odd aspheres, the
+// XY polynomial, the Chebyshev grid, the biconic, the toroid, the Zernike
+// sag) and the thin Fresnel surfaces (zoned, designed), all but the Forbes
+// sags, and the OPD modes of (g): the Kahan-compensated sum and the
+// split-OPD accumulation.
 //
 // Both kernels run this one forward, so K2's recomputed forward is bit for
 // bit K1's, lost-ray masks included.
@@ -15,7 +18,9 @@
 // 1446-1481, the split sag refresh 1482-1489, the aperture 1493-1500, the
 // freeform normal 1663-1671, the coating 1733-1736, globalize 1738-1748),
 // _state_step's propagation sign (2057-2099, 2163-2168), _conic_base
-// (435-443), _asphere_sag_grad (396-432) and _gen_epilogue (2123-2140).
+// (435-443), _asphere_sag_grad (396-432), _axis_conic (446-453),
+// _zernike_sag_grad (468-530), _freeform_sag_grad (841-935), the Fresnel
+// branches (1379-1383, 1672-1688, 1707-1720) and _gen_epilogue (2123-2140).
 //
 // Layout (shared with the plain version, kernels/gen_trace.py):
 //   gen    [F, 16]     per-field launch constants (origin/aim coefficients,
@@ -25,13 +30,26 @@
 //                      6 coating factor 8-16 rotation (row-major)
 //                      17-19 translation (tx, ty, pos_z + dz)
 //                      20 r_min^2 21 r_max^2 22-23 aperture offset
+//                      24-25 the sag's own scalars: Chebyshev norm_x,
+//                      norm_y; biconic 1/radius_x, conic_x; toroid the
+//                      rotation radius (1 at infinity); Zernike
+//                      norm_radius; designed Fresnel focal_length, n_design
 //                      27 the signed vertex gap (split mode; surface 1's
 //                      from the launch plane)
-//   acoef  [S, C]      asphere terms, row k for surface k
+//   acoef  [S, C]      sag coefficients, row k for surface k: asphere and
+//                      toroid terms, the XY-polynomial and Chebyshev grids
+//                      row-major (C[i][j] at i nv + j), Zernike terms
+//   ztab   [3, MAX_TERMS, ZT_W]  each Zernike basis's term structure, built
+//                      on the host (kernels/gen_trace.py::zernike_table):
+//                      per term n, m, the normalization, the number of
+//                      radial powers, then (p, coef, p coef) per power in
+//                      ascending p
 //   flags  [S]         bits 0 plane, 1 reflective, 2 absorbing, 3 tilted or
-//                      decentered, 4 aperture, 5 simple coating; bits 6-7 the
-//                      sag (0 conic, 1 even asphere, 2 odd asphere); bits
-//                      8-15 the number of asphere terms
+//                      decentered, 4 aperture, 5 simple coating; bits 6-9 the
+//                      sag (GK_*); bits 10-15 nu, the terms of a sag or the
+//                      x size of a grid; bits 16-21 nv, a grid's y size;
+//                      bits 22-23 the Zernike basis (0 standard, 1 fringe,
+//                      2 Noll)
 //
 // Rounding: every operation is an explicit IEEE round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never contracts
@@ -39,12 +57,22 @@
 // plain version on the card therefore agree bit for bit. Built without
 // --use_fast_math.
 //
-// Variants: surface_step is a template on WIDE and on the OPD mode. With
-// WIDE false it compiles only sub-slice (a), the code that ran before (b)
-// and (c) existed, so a conic/plane system keeps its register count and
-// speed; the host launches the WIDE variant only when a flag word has a bit
-// of (b) or (c). The OPD mode (OPD_PLAIN, OPD_KAHAN, OPD_SPLIT) is the
-// caller's choice; OPD_PLAIN compiles the code that ran before (g).
+// Variants: surface_step is a template on the variant and on the OPD mode.
+// VAR_NARROW compiles only sub-slice (a), the code that ran before (b) and
+// (c) existed, so a conic/plane system keeps its register count and speed;
+// VAR_WIDE adds (b) and the even/odd aspheres; VAR_FREEFORM adds the other
+// sags of (c) (sag kinds GK_POLY and up), so the aspheric systems keep the
+// WIDE variant's registers. The host launches the least variant the flag
+// words need. The OPD mode (OPD_PLAIN, OPD_KAHAN, OPD_SPLIT) is the
+// caller's choice; OPD_PLAIN compiles the code that ran before (g). The
+// split mode takes no sag but the conic, so VAR_FREEFORM is built in the
+// plain and Kahan modes only.
+//
+// The Newton sags share the asphere's loop: the conic root (or the plane)
+// as the warm start, NEWTON_ITERS steps, then the live step K2
+// differentiates. Each sag's term structure is static per surface: loop
+// counts from the flag word, the Zernike terms from ztab, never recomputed
+// from the term index per ray.
 //
 // The OPD modes (sub-slice (g)):
 //   OPD_KAHAN  opd += |t n1| as a compensated (two-sum) update, with the
@@ -72,17 +100,35 @@
 #define MAX_TERMS 32
 #define NEWTON_ITERS 8
 
+#define ZT_W 32
+
 enum { FLAG_PLANE = 1, FLAG_REFL = 2, FLAG_ABSORB = 4, FLAG_CS = 8,
        FLAG_AP = 16, FLAG_COAT = 32 };
-enum { GK_CONIC = 0, GK_EVEN = 1, GK_ODD = 2 };
+// the sag kinds; 11 and 12 are kept for the Forbes Qbfs and Q2D sags
+enum { GK_CONIC = 0, GK_EVEN = 1, GK_ODD = 2, GK_POLY = 3, GK_CHEB = 4,
+       GK_BICONIC = 5, GK_TORUS = 6, GK_TORUS_INF = 7, GK_ZERNIKE = 8,
+       GK_FZONE = 9, GK_FDESIGNED = 10, GK_LAST = GK_FDESIGNED };
 enum { OPD_PLAIN = 0, OPD_KAHAN = 1, OPD_SPLIT = 2 };
+enum { VAR_NARROW = 0, VAR_WIDE = 1, VAR_FREEFORM = 2 };
 #define GKIND_SHIFT 6
-#define NU_SHIFT 8
+#define GKIND_MASK 15
+#define NU_SHIFT 10
+#define NV_SHIFT 16
+#define NTERM_MASK 63
+#define BASIS_SHIFT 22
+#define BASIS_MASK 3
 // the bits that need the WIDE variant
-#define WIDE_MASK (FLAG_CS | FLAG_AP | FLAG_COAT | (3 << GKIND_SHIFT))
+#define WIDE_MASK (FLAG_CS | FLAG_AP | FLAG_COAT | (GKIND_MASK << GKIND_SHIFT))
 
-__host__ __device__ __forceinline__ int gkind_of(int fl) { return (fl >> GKIND_SHIFT) & 3; }
-__host__ __device__ __forceinline__ int nu_of(int fl) { return (fl >> NU_SHIFT) & 255; }
+__host__ __device__ __forceinline__ int gkind_of(int fl) { return (fl >> GKIND_SHIFT) & GKIND_MASK; }
+__host__ __device__ __forceinline__ int nu_of(int fl) { return (fl >> NU_SHIFT) & NTERM_MASK; }
+__host__ __device__ __forceinline__ int nv_of(int fl) { return (fl >> NV_SHIFT) & NTERM_MASK; }
+__host__ __device__ __forceinline__ int basis_of(int fl) { return (fl >> BASIS_SHIFT) & BASIS_MASK; }
+// the coefficients a sag reads from its acoef row
+__host__ __device__ __forceinline__ int ncoef_of(int fl) {
+    const int gk = gkind_of(fl);
+    return (gk == GK_POLY || gk == GK_CHEB) ? nu_of(fl) * nv_of(fl) : nu_of(fl);
+}
 
 struct SurfFlags {
     int32_t f[MAX_SURF];
@@ -183,6 +229,244 @@ __device__ __forceinline__ Sag asphere_sag_grad(float ri, float conic,
     return o;
 }
 
+// ---- the freeform sags of (c) (_freeform_sag_grad) -------------------------
+// Each returns (s, ds/dx, ds/dy) at (xx, yy) in the plain version's order
+// (kernels/gen_trace.py::_sag_grad). c is the surface's constant row.
+
+// the conic base of the freeform sags (_conic_base)
+__device__ __forceinline__ Sag conic_base(float ri, float conic, float xx,
+                                          float yy) {
+    return asphere_sag_grad(ri, conic, nullptr, 0, false, xx, yy);
+}
+
+// a 1-D conic section's sag and slope in curvature form (_axis_conic)
+__device__ __forceinline__ void axis_conic(float cv, float k, float v,
+                                           float& s, float& g) {
+    const float arg = sub(1.0f, mul(mul(mul(mul(add(1.0f, k), cv), cv), v), v));
+    const float sq = sqt(arg > EPS_GUARD ? arg : EPS_GUARD);
+    s = dvd(mul(mul(cv, v), v), add(1.0f, sq));
+    g = dvd(mul(cv, v), sq);
+}
+
+// conic + sum_ij C[i][j] x^i y^j
+__device__ __forceinline__ Sag poly_sag_grad(const float* c, const float* ac,
+                                             int nu, int nv, float xx,
+                                             float yy) {
+    Sag o = conic_base(c[0], c[1], xx, yy);
+    float xi = 1.0f, xim1 = 0.0f;              // x^i, x^(i-1)
+    for (int i = 0; i < nu; ++i) {
+        float yj = 1.0f, yjm1 = 0.0f;
+        for (int j = 0; j < nv; ++j) {
+            const float cij = ac[i * nv + j];
+            o.s = add(o.s, mul(mul(cij, xi), yj));
+            if (i > 0) o.gx = add(o.gx, mul(mul(mul((float)i, cij), xim1), yj));
+            if (j > 0) o.gy = add(o.gy, mul(mul(mul((float)j, cij), xi), yjm1));
+            yjm1 = yj;
+            yj = mul(yj, yy);
+        }
+        xim1 = xi;
+        xi = mul(xi, xx);
+    }
+    return o;
+}
+
+// T_k(w) and T'_k(w) = k U_{k-1}(w), k = 0, 1, ... by the recurrences
+// T_k = 2w T_{k-1} - T_{k-2}, U_k = 2w U_{k-1} - U_{k-2} (_cheb_tu)
+struct Cheb {
+    float w, w2, t_prev, t, u_prev, u, dt;
+    int k;
+    __device__ __forceinline__ void start(float w_) {
+        w = w_;
+        w2 = mul(2.0f, w_);
+        k = 0;
+        t_prev = 0.0f;
+        t = 1.0f;
+        u_prev = 0.0f;
+        u = 1.0f;                              // U_0
+        dt = 0.0f;
+    }
+    __device__ __forceinline__ void next() {
+        ++k;
+        const float tn = k == 1 ? w : sub(mul(w2, t), t_prev);
+        t_prev = t;
+        t = tn;
+        if (k >= 2) {                          // u = U_{k-1}
+            const float un = k == 2 ? w2 : sub(mul(w2, u), u_prev);
+            u_prev = u;
+            u = un;
+        }
+        dt = mul((float)k, u);
+    }
+};
+
+// conic + sum_ij C[i][j] T_i(x / c24) T_j(y / c25); the slope is T' at the
+// normalized coordinate without the 1/norm factor (the reference's quirk)
+__device__ __forceinline__ Sag cheb_sag_grad(const float* c, const float* ac,
+                                             int nu, int nv, float xx,
+                                             float yy) {
+    Sag o = conic_base(c[0], c[1], xx, yy);
+    Cheb tx;
+    tx.start(dvd(xx, c[24]));
+    const float v = dvd(yy, c[25]);
+    for (int i = 0; i < nu; ++i) {
+        if (i > 0) tx.next();
+        Cheb ty;
+        ty.start(v);
+        for (int j = 0; j < nv; ++j) {
+            if (j > 0) ty.next();
+            const float cij = ac[i * nv + j];
+            o.s = add(o.s, mul(mul(cij, tx.t), ty.t));
+            if (i > 0) o.gx = add(o.gx, mul(mul(cij, tx.dt), ty.t));
+            if (j > 0) o.gy = add(o.gy, mul(mul(cij, tx.t), ty.dt));
+        }
+    }
+    return o;
+}
+
+// separate x (curvature c24, conic c25) and y (c0, c1) conic sections
+__device__ __forceinline__ Sag biconic_sag_grad(const float* c, float xx,
+                                                float yy) {
+    Sag o;
+    float sy, sx;
+    axis_conic(c[0], c[1], yy, sy, o.gy);
+    axis_conic(c[24], c[25], xx, sx, o.gx);
+    o.s = add(sx, sy);
+    return o;
+}
+
+// a y-z conic plus sum_i C_i y^(2(i+1)), swept about x with the radius c24;
+// at an infinite radius (inf) the cylinder of the y-z curve
+__device__ __forceinline__ Sag toroidal_sag_grad(const float* c,
+                                                 const float* ac, int nu,
+                                                 bool inf, float xx,
+                                                 float yy) {
+    float zy, dzy;
+    axis_conic(c[0], c[1], yy, zy, dzy);
+    const float y2 = mul(yy, yy);
+    float term = y2, dterm = yy;
+    for (int i = 0; i < nu; ++i) {
+        const float ci = ac[i];
+        zy = add(zy, mul(ci, term));
+        dzy = add(dzy, mul(mul(2.0f * (float)(i + 1), ci), dterm));
+        term = mul(term, y2);
+        dterm = mul(dterm, y2);
+    }
+    Sag o;
+    if (inf) {
+        o.s = zy;
+        o.gx = 0.0f;
+        o.gy = dzy;
+        return o;
+    }
+    const float R = c[24];
+    const float dz = sub(R, zy);
+    const float inside = sub(mul(dz, dz), mul(xx, xx));
+    const bool ok = inside > EPS_GUARD;
+    const float root = sqt(ok ? inside : EPS_GUARD);
+    o.s = dz >= 0.0f ? sub(R, root) : add(R, root);   // R - sign(dz) root
+    const float sgn_r = R >= 0.0f ? 1.0f : -1.0f;
+    const float inv_root = dvd(1.0f, root);
+    o.gx = ok ? mul(mul(sgn_r, xx), inv_root) : 0.0f;
+    o.gy = ok ? mul(mul(mul(sgn_r, dz), dzy), inv_root) : 0.0f;
+    return o;
+}
+
+// conic + sum_j c_j norm_j R_j(rho) A_j(phi), rho = r / c24: the radial
+// polynomials in ascending powers, cos/sin of m phi by the multiple-angle
+// recurrence on (x, y) / r; zt is the basis's term table
+__device__ __forceinline__ Sag zernike_sag_grad(const float* c,
+                                                const float* ac, int nu,
+                                                const float* zt, float xx,
+                                                float yy) {
+    Sag o = conic_base(c[0], c[1], xx, yy);
+    if (nu == 0) return o;
+    const float nr = c[24];
+    const float r = sqt(add(mul(xx, xx), mul(yy, yy)));
+    const float r_safe = fmaxf(r, 1e-12f);
+    const float rho = dvd(r, nr);
+    const float cost = dvd(xx, r_safe), sint = dvd(yy, r_safe);
+    const float cost2 = mul(2.0f, cost);
+    float dz_drho = 0.0f, dz_dphi = 0.0f;
+    for (int j = 0; j < nu; ++j) {
+        const float* t = zt + j * ZT_W;
+        const int m = (int)t[1], nc = (int)t[3];
+        float Rnm = 0.0f, dR = 0.0f;
+        float pw = 1.0f, prev = 0.0f;          // rho^q, rho^(q - 1)
+        int q = 0;
+        for (int k = 0; k < nc; ++k) {
+            const int p = (int)t[4 + 3 * k];
+            while (q < p) {
+                prev = pw;
+                pw = mul(pw, rho);
+                ++q;
+            }
+            Rnm = add(Rnm, mul(t[5 + 3 * k], pw));
+            if (p > 0) dR = add(dR, mul(t[6 + 3 * k], prev));
+        }
+        const float cj = mul(ac[j], t[2]);
+        if (m == 0) {
+            o.s = add(o.s, mul(cj, Rnm));
+            dz_drho = add(dz_drho, mul(cj, dR));
+            continue;
+        }
+        const int mu = m > 0 ? m : -m;
+        float c0 = 1.0f, c1 = cost, s0 = 0.0f, s1 = sint;
+        for (int a = 2; a <= mu; ++a) {
+            const float cn = sub(mul(cost2, c1), c0);
+            const float sn = sub(mul(cost2, s1), s0);
+            c0 = c1;
+            c1 = cn;
+            s0 = s1;
+            s1 = sn;
+        }
+        const float ang = m > 0 ? c1 : s1;
+        const float dang = m > 0 ? mul(-(float)m, s1) : mul((float)mu, c1);
+        o.s = add(o.s, mul(mul(cj, Rnm), ang));
+        dz_drho = add(dz_drho, mul(mul(cj, dR), ang));
+        dz_dphi = add(dz_dphi, mul(mul(cj, Rnm), dang));
+    }
+    const float inv_rs = dvd(1.0f, r_safe);
+    o.gx = sub(add(o.gx, dvd(mul(mul(dz_drho, xx), inv_rs), nr)),
+               mul(mul(mul(dz_dphi, yy), inv_rs), inv_rs));
+    o.gy = add(add(o.gy, dvd(mul(mul(dz_drho, yy), inv_rs), nr)),
+               mul(mul(mul(dz_dphi, xx), inv_rs), inv_rs));
+    return o;
+}
+
+// The Newton sags' dispatch: the WIDE variant compiles the even/odd asphere
+// only, the FREEFORM variant every kind.
+template <int VAR>
+__device__ __forceinline__ Sag sag_grad(int gk, int fl, const float* c,
+                                        const float* ac, const float* ztab,
+                                        float xx, float yy) {
+    const int nu = nu_of(fl);
+    if (VAR != VAR_FREEFORM || gk == GK_EVEN || gk == GK_ODD)
+        return asphere_sag_grad(c[0], c[1], ac, nu, gk == GK_ODD, xx, yy);
+    if (gk == GK_POLY) return poly_sag_grad(c, ac, nu, nv_of(fl), xx, yy);
+    if (gk == GK_CHEB) return cheb_sag_grad(c, ac, nu, nv_of(fl), xx, yy);
+    if (gk == GK_BICONIC) return biconic_sag_grad(c, xx, yy);
+    if (gk == GK_TORUS || gk == GK_TORUS_INF)
+        return toroidal_sag_grad(c, ac, nu, gk == GK_TORUS_INF, xx, yy);
+    return zernike_sag_grad(c, ac, nu,
+                            ztab + (size_t)basis_of(fl) * MAX_TERMS * ZT_W,
+                            xx, yy);
+}
+
+// the designed Fresnel facet's slopes m (x, y) / r, m = -(r / hyp) /
+// (n_design - f / hyp), hyp = sqrt(r^2 + f^2) (pallas_trace.py:1672-1688)
+__device__ __forceinline__ void designed_slope(const float* c, float x,
+                                               float y, float& dfdx,
+                                               float& dfdy) {
+    const float r2 = add(mul(x, x), mul(y, y));
+    const float r = sqt(r2);
+    const float r_safe = fmaxf(r, 1e-12f);
+    const float f = c[24];
+    const float hyp = sqt(add(r2, mul(f, f)));
+    const float m = dvd(-dvd(r, hyp), sub(c[25], dvd(f, hyp)));
+    dfdx = dvd(mul(m, x), r_safe);
+    dfdy = dvd(mul(m, y), r_safe);
+}
+
 // ---- the compensated update of (opd, opd_c) by v -------------------------
 // Three separate roundings: an FMA or a reassociation would delete the
 // compensation, and the explicit intrinsics forbid both.
@@ -216,18 +500,25 @@ __device__ __forceinline__ void gen_prologue(const float* g, float Px, float Py,
 }
 
 // ---- one surface (_surface_step) -------------------------------------------
-// c: the surface's constant row; ac: its asphere terms (read only by WIDE);
-// sigma: the propagation sign (read only by OPD_SPLIT).
-template <bool WIDE, int MODE>
+// c: the surface's constant row; ac: its sag coefficients (read only by WIDE
+// and FREEFORM); ztab: the Zernike table (read only by FREEFORM); sigma:
+// the propagation sign (read only by OPD_SPLIT).
+template <int VAR, int MODE>
 __device__ __forceinline__ void surface_step(const float* c, const float* ac,
-                                             int fl, float sigma, RayState& s,
+                                             const float* ztab, int fl,
+                                             float sigma, RayState& s,
                                              SurfTape& tp) {
+    constexpr bool WIDE = VAR != VAR_NARROW;
+    constexpr bool FF = VAR == VAR_FREEFORM;
     const float ri = c[0], conic = c[1], pos_z = c[2];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
     const bool cs = WIDE && (fl & FLAG_CS);
     const int gk = WIDE ? gkind_of(fl) : GK_CONIC;
-    const bool odd = gk == GK_ODD;
-    const int nu = WIDE ? nu_of(fl) : 0;
+    // the thin Fresnel surfaces meet the ray at their base plane
+    const bool fresnel = FF && (gk == GK_FZONE || gk == GK_FDESIGNED);
+    const bool newton = gk != GK_CONIC && !fresnel;
+    // the zoned Fresnel refracts with its parent conic's slope
+    const bool conic_like = gk == GK_CONIC || (FF && gk == GK_FZONE);
     float x = s.x, y = s.y, z;
     float L = s.L, M = s.M, N = s.N;
 
@@ -256,9 +547,9 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     tp.Ml = M;
     tp.Nl = N;
 
-    // the conic root (the asphere's warm start)
+    // the conic root (the Newton sag's warm start)
     float t;
-    if (fl & FLAG_PLANE) {
+    if ((fl & FLAG_PLANE) || fresnel) {
         t = dvd(-z, N);
     } else {
         tp.t0 = dvd(-z, N);
@@ -282,15 +573,15 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
         s.valid = s.valid && tp.ok;
     }
 
-    // asphere: NEWTON_ITERS steps from the warm start, then the live step
-    // (the plain version runs the steps without gradient)
-    if (gk != GK_CONIC) {
+    // a Newton sag: NEWTON_ITERS steps from the warm start, then the live
+    // step (the plain version runs the steps without gradient)
+    if (newton) {
         float t_it = t;
         for (int it = 0; it <= NEWTON_ITERS; ++it) {
             const float xx = add(x, mul(t_it, L));
             const float yy = add(y, mul(t_it, M));
             const float zz = add(z, mul(t_it, N));
-            const Sag g = asphere_sag_grad(ri, conic, ac, nu, odd, xx, yy);
+            const Sag g = sag_grad<VAR>(gk, fl, c, ac, ztab, xx, yy);
             const float f = sub(g.s, zz);
             const float dd = sub(add(mul(g.gx, L), mul(g.gy, M)), N);
             const float dg = eps_guard(dd);
@@ -352,7 +643,7 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     tp.z2 = z;
 
     float Lo = L, Mo = M, No = N;
-    if (gk == GK_CONIC && (fl & FLAG_PLANE)) {
+    if (conic_like && (fl & FLAG_PLANE)) {
         if (fl & FLAG_REFL) {
             No = -N;
         } else {
@@ -366,15 +657,17 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
             No = sign_times(N, tp.root_r);
         }
     } else {
-        if (gk == GK_CONIC) {
+        if (conic_like) {
             tp.r2 = add(mul(x, x), mul(y, y));
             tp.arg = sub(1.0f, mul(mul(mul(add(1.0f, conic), ri), ri), tp.r2));
             tp.sr = sqt(tp.arg > EPS_GUARD ? tp.arg : 1.0f);
             tp.inv_root = dvd(1.0f, tp.sr);
             tp.dfdx = mul(mul(x, ri), tp.inv_root);
             tp.dfdy = mul(mul(y, ri), tp.inv_root);
-        } else {                               // the asphere's own slope
-            const Sag g = asphere_sag_grad(ri, conic, ac, nu, odd, x, y);
+        } else if (FF && gk == GK_FDESIGNED) {
+            designed_slope(c, x, y, tp.dfdx, tp.dfdy);
+        } else {                               // the Newton sag's own slope
+            const Sag g = sag_grad<VAR>(gk, fl, c, ac, ztab, x, y);
             tp.dfdx = g.gx;
             tp.dfdy = g.gy;
         }
@@ -441,16 +734,27 @@ __device__ __forceinline__ void gen_epilogue(const float* g, int final_prop,
     }
 }
 
-// True when the split mode can take the flag words: no tilt, no asphere.
+// True when the split mode can take the flag words: no tilt, no sag but the
+// conic.
 static inline bool split_ok(const int32_t* flags, int S) {
     for (int k = 0; k < S; ++k)
-        if (flags[k] & (FLAG_CS | (3 << GKIND_SHIFT))) return false;
+        if (flags[k] & (FLAG_CS | (GKIND_MASK << GKIND_SHIFT))) return false;
     return true;
 }
 
-// True when a flag word needs the WIDE variant.
-static inline bool needs_wide(const int32_t* flags, int S) {
+// True when every flag word names a sag kind the kernels have.
+static inline bool kinds_ok(const int32_t* flags, int S) {
     for (int k = 0; k < S; ++k)
-        if (flags[k] & WIDE_MASK) return true;
-    return false;
+        if (gkind_of(flags[k]) > GK_LAST) return false;
+    return true;
+}
+
+// The least variant the flag words need.
+static inline int variant_of(const int32_t* flags, int S) {
+    int v = VAR_NARROW;
+    for (int k = 0; k < S; ++k) {
+        if (gkind_of(flags[k]) >= GK_POLY) return VAR_FREEFORM;
+        if (flags[k] & WIDE_MASK) v = VAR_WIDE;
+    }
+    return v;
 }

@@ -1,5 +1,5 @@
 """K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b),
-the even/odd aspheres of (c) and the OPD modes of (g) (counterpart of
+(c) but the Forbes sags, and the OPD modes of (g) (counterpart of
 ``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
 ``diff_gen_trace`` custom_vjp).
 
@@ -26,8 +26,9 @@ import ctypes
 
 import torch
 
-from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, OPD_MODES, build_kernel,
-                        check_tables, gen_trace_cuda, gen_trace_plain)
+from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, OPD_MODES, VARIANTS,
+                        build_kernel, check_tables, gen_trace_cuda,
+                        gen_trace_plain, kernel_variant, zernike_table)
 
 __all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
 
@@ -78,7 +79,7 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
     with torch.cuda.device(dev):
         err = lib.gen_grad_launch(
             gen.data_ptr(), consts.data_ptr(), acoef.data_ptr(),
-            Px.data_ptr(), Py.data_ptr(), cot.data_ptr(), part.data_ptr(),
+            zernike_table(dev).data_ptr(), Px.data_ptr(), Py.data_ptr(), cot.data_ptr(), part.data_ptr(),
             *ptrs, dgen.data_ptr(), dconsts.data_ptr(), dacoef.data_ptr(),
             *outs, ctypes.addressof(words), S, F, W, C, n,
             int(bool(final_prop)), mode, stream)
@@ -86,11 +87,13 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
         raise RuntimeError(f"gen_grad kernel launch failed: CUDA error {err}")
     gen_trace_bwd_cuda.launches += 1
     gen_trace_bwd_cuda.launches_by_mode[opd_mode] += 1
+    gen_trace_bwd_cuda.launches_by_variant[kernel_variant(flags)] += 1
     return dgen, dconsts, dacoef, dpx, dpy
 
 
 gen_trace_bwd_cuda.launches = 0
 gen_trace_bwd_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
+gen_trace_bwd_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 class GenTrace(torch.autograd.Function):

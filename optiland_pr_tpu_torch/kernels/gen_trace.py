@@ -1,16 +1,21 @@
 """K1 in the port: fused ray generation + surface stack + image propagation
 (counterpart of ``optiland_pr_tpu/kernels/pallas_trace.py::_pallas_gen_trace_2d``
-and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b) and the
-even/odd part of (c):
+and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c)
+but the Forbes sags, and (g):
 - (a) conic and plane surfaces that refract or reflect, with absorption in
   the pre-material;
 - (b) tilted and decentered surfaces (localize before the intersection,
   globalize after the interaction), radial and offset-radial apertures
   (intensity masking in the local frame) and simple coatings (an intensity
   factor after the interaction);
-- (c), even and odd aspheres: the conic root as a warm start, exactly
-  ``NEWTON_ITERS`` Newton steps without gradient, then one differentiable
-  step (its gradient is the implicit-function-theorem one);
+- (c), the Newton sags (even and odd aspheres, the XY polynomial, the
+  Chebyshev grid, the biconic, the toroid and the Zernike sag): the conic
+  root as a warm start, exactly ``NEWTON_ITERS`` Newton steps without
+  gradient, then one differentiable step (its gradient is the
+  implicit-function-theorem one); and the two thin Fresnel surfaces, met at
+  their base plane, which refract with the parent conic's slope
+  ("fresnel_zone") or with the designed facet slope
+  m = -sin t / (n_design - cos t), tan t = r / f ("fresnel_designed");
 - (g), the OPD precision modes (``OPD_MODES``): "kahan", the compensated
   sum of the path lengths, and "split", the split-OPD accumulation of
   untilted conic/plane stacks (``supports_split_opd``): z is carried local
@@ -20,8 +25,9 @@ even/odd part of (c):
 
 The module holds
 - the host plumbing: ``supports_model``, ``gen_eligible``, ``model_flags``,
-  ``pack_surface_constants``, ``pack_asphere_coeffs`` and ``gen_tables``,
-  with the JAX package's table layout (``pallas_trace.py:37-46``);
+  ``pack_surface_constants``, ``pack_asphere_coeffs``, ``gen_tables`` and
+  ``zernike_table``, with the JAX package's table layout
+  (``pallas_trace.py:37-46``);
 - ``gen_trace_plain``: the plain PyTorch version of the kernel on the packed
   tables, in the kernel's operation order;
 - ``gen_trace_cuda``: the wrapper of the hand-written CUDA kernel
@@ -57,6 +63,8 @@ from ..system.model import OpticModel, positions_from_params
 
 __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
            "model_flags", "NEWTON_ITERS", "OPD_MODES", "GRAD_LIBS",
+           "ZERNIKE_BASES", "VARIANTS", "kernel_variant", "zernike_table",
+           "n_coefs",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
            "gen_trace_plain", "gen_trace_cuda", "gen_trace_conic",
            "split_consts", "axial_base", "check_tables", "build_kernel",
@@ -65,7 +73,7 @@ __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
 CONST_W = 32       # per-surface constant row width
 GEN_W = 16         # per-field launch row width
 MAX_SURFACES = 64  # the kernel's static flag table (csrc/gen_trace.cu)
-MAX_TERMS = 32     # asphere terms a surface may carry (csrc/gen_grad.cu)
+MAX_TERMS = 32     # sag coefficients a surface may carry (csrc/gen_grad.cu)
 NEWTON_ITERS = 8   # fixed Newton refinements of an asphere intersection
 _EPS = 1e-14
 # the kernels' OPD modes (csrc/gen_trace_common.cuh: OPD_PLAIN, OPD_KAHAN,
@@ -73,13 +81,31 @@ _EPS = 1e-14
 OPD_MODES = ("plain", "kahan", "split")
 
 # the flag word of a surface (csrc/gen_trace_common.cuh): bits 0-5 the
-# booleans, bits 6-7 the sag kind, bits 8-15 the number of asphere terms
+# booleans, bits 6-9 the sag kind, bits 10-15 nu (the terms of a sag, the
+# x size of a coefficient grid), bits 16-21 nv (a grid's y size), bits
+# 22-23 the Zernike basis
 FLAG_PLANE, FLAG_REFL, FLAG_ABSORB = 1, 2, 4
 FLAG_CS, FLAG_AP, FLAG_COAT = 8, 16, 32
-GKIND_SHIFT, NU_SHIFT = 6, 8
-_GKIND_CODES = {"conic": 0, "even": 1, "odd": 2}
+GKIND_SHIFT, NU_SHIFT, NV_SHIFT, BASIS_SHIFT = 6, 10, 16, 22
+GKIND_MASK, NTERM_MASK, BASIS_MASK = 15, 63, 3
+# codes 11 and 12 are kept for the Forbes Qbfs and Q2D sags
+_GKIND_CODES = {"conic": 0, "even": 1, "odd": 2, "poly": 3, "cheb": 4,
+                "biconic": 5, "toroidal": 6, "toroidal_inf": 7,
+                "zernike": 8, "fresnel_zone": 9, "fresnel_designed": 10}
 _KERNEL_KINDS = {"standard": "conic", "plane": "conic",
-                 "even_asphere": "even", "odd_asphere": "odd"}
+                 "even_asphere": "even", "odd_asphere": "odd",
+                 "polynomial_xy": "poly", "chebyshev": "cheb",
+                 "biconic": "biconic", "toroidal": "toroidal",
+                 "zernike": "zernike", "fresnel_zone": "fresnel_zone",
+                 "fresnel_designed": "fresnel_designed"}
+FRESNEL_KINDS = ("fresnel_zone", "fresnel_designed")
+# the kernels' variants (csrc/gen_trace_common.cuh: VAR_NARROW, VAR_WIDE,
+# VAR_FREEFORM): sub-slice (a); with (b) and the even/odd aspheres; with the
+# other sags of (c)
+VARIANTS = ("narrow", "wide", "freeform")
+# the Zernike bases by their codes in the flag word
+ZERNIKE_BASES = ("standard", "fringe", "noll")
+ZT_W = 32          # floats per term of the Zernike table (zernike_table)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -90,19 +116,35 @@ _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 # eligibility and static flags
 # ---------------------------------------------------------------------------
 
+def n_coefs(gkind: str, nu: int, nv: int) -> int:
+    """Coefficients a surface's sag reads from its ``acoef`` row: the
+    nu x nv grid of the XY polynomial and the Chebyshev sag, else nu."""
+    return nu * nv if gkind in ("poly", "cheb") else nu
+
+
+def _sag_shape(geom) -> tuple:
+    """(nu, nv) of a geometry: its terms, or its coefficient grid."""
+    if geom.kind in ("polynomial_xy", "chebyshev"):
+        return geom.num_x, geom.num_y
+    return getattr(geom, "num_terms", 0), 0
+
+
 def supports_model(model: OpticModel) -> bool:
     """True if every inner surface is in the ported sub-slices: a conic,
-    plane, even- or odd-aspheric surface that refracts or reflects, tilted or
-    not, with no aperture or a radial or offset-radial one, no coating or a
-    simple one, at most ``MAX_TERMS`` asphere terms, and the stack fits the
-    kernel's flag table. A Fresnel coating (the polarization chain,
-    sub-slice (e)) is refused."""
+    plane, even- or odd-aspheric, XY-polynomial, Chebyshev, biconic,
+    toroidal, Zernike or thin Fresnel surface that refracts or reflects,
+    tilted or not, with no aperture or a radial or offset-radial one, no
+    coating or a simple one, at most ``MAX_TERMS`` sag coefficients, and the
+    stack fits the kernel's flag table. A Fresnel coating (the polarization
+    chain, sub-slice (e)) is refused."""
     if model.num_surfaces - 1 > MAX_SURFACES:
         return False
     for spec in model.surfaces[1:]:
         if spec.geometry.kind not in _KERNEL_KINDS:
             return False
-        if getattr(spec.geometry, "num_terms", 0) > MAX_TERMS:
+        nu, nv = _sag_shape(spec.geometry)
+        if (max(nu, nv) > NTERM_MASK or n_coefs(
+                _KERNEL_KINDS[spec.geometry.kind], nu, nv) > MAX_TERMS):
             return False
         if spec.aperture is not None and spec.aperture.kind not in (
                 "radial", "offset_radial"):
@@ -133,46 +175,114 @@ def gen_eligible(model: OpticModel) -> bool:
     return model.field_type == "paraxial_image_height"
 
 
+def _hint_isinf(spec, params, k, key: str) -> bool:
+    """The host-side hint ``Optic.build`` stamps for ``key`` (a geometry's
+    ``<key>_is_inf``); a geometry without it is read from ``params``."""
+    hint = getattr(spec.geometry, f"{key}_is_inf", None)
+    if hint is None:
+        hint = bool(torch.isinf(params["surfaces"][k]["geom"][key]).item())
+    return bool(hint)
+
+
 def model_flags(model: OpticModel, params=None) -> tuple:
-    """Static flags per inner surface, the JAX package's fields of this
-    scope: (is_plane, is_reflective, absorbing, gkind, nu, has_cs, has_ap,
-    coat) with gkind "conic", "even" or "odd", nu the number of asphere
-    terms and coat "none", "simple" or "fresnel". ``is_plane`` is read from
-    the host-side hint ``Geometry.radius_is_inf`` (stamped by
-    ``Optic.build``); a geometry without the hint is read from ``params``."""
+    """Static flags per inner surface: (is_plane, is_reflective, absorbing,
+    gkind, nu, has_cs, has_ap, coat, nv, gextra), the JAX package's fields
+    of this scope (``pallas_trace.py::model_flags``) in the port's order.
+    gkind is "conic", "even", "odd", "poly", "cheb", "biconic",
+    "toroidal", "toroidal_inf" (an infinite rotation radius), "zernike",
+    "fresnel_zone" or "fresnel_designed"; nu the number of sag terms or the
+    x size of a coefficient grid, nv its y size (else 0); coat "none",
+    "simple" or "fresnel"; gextra the Zernike basis (else None).
+    ``is_plane`` and a toroid's infinite rotation radius are read from the
+    host-side hints ``radius_is_inf``/``radius_rot_is_inf`` (stamped by
+    ``Optic.build``); a geometry without them is read from ``params``."""
     flags = []
     for k in range(1, model.num_surfaces):
         spec = model.surfaces[k]
-        is_plane = spec.geometry.radius_is_inf
-        if is_plane is None:
-            is_plane = bool(torch.isinf(
-                params["surfaces"][k]["geom"]["radius"]).item())
+        is_plane = _hint_isinf(spec, params, k, "radius")
         pre = model.surfaces[k - 1]
         absorbing = model.surfaces[pre.material_src].material.absorbing
         gkind = _KERNEL_KINDS[spec.geometry.kind]
-        nu = spec.geometry.num_terms if gkind != "conic" else 0
+        nu, nv = _sag_shape(spec.geometry) if gkind != "conic" else (0, 0)
+        if gkind == "toroidal" and _hint_isinf(spec, params, k, "radius_rot"):
+            gkind = "toroidal_inf"
+        gextra = spec.geometry.zernike_type if gkind == "zernike" else None
         coat = "none" if spec.coating is None else spec.coating.kind
         flags.append((bool(is_plane), bool(spec.is_reflective),
                       bool(absorbing), gkind, nu,
                       bool(spec.has_tilt_decenter),
-                      spec.aperture is not None, coat))
+                      spec.aperture is not None, coat, nv, gextra))
     return tuple(flags)
 
 
 def _flag_words(flags) -> list:
     """The kernels' int32 flag word of each surface."""
     words = []
-    for is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat in flags:
-        if coat not in ("none", "simple") or not 0 <= nu <= MAX_TERMS:
-            raise ValueError(f"no kernel for coating {coat!r} or {nu} terms")
+    for (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv,
+         gextra) in flags:
+        if (coat not in ("none", "simple") or gkind not in _GKIND_CODES
+                or not 0 <= nu <= NTERM_MASK or not 0 <= nv <= NTERM_MASK
+                or n_coefs(gkind, nu, nv) > MAX_TERMS):
+            raise ValueError(f"no kernel for coating {coat!r} or sag "
+                             f"{gkind!r} with ({nu}, {nv}) terms")
+        basis = ZERNIKE_BASES.index(gextra) if gkind == "zernike" else 0
         words.append((FLAG_PLANE if is_plane else 0)
                      | (FLAG_REFL if is_refl else 0)
                      | (FLAG_ABSORB if absorbing else 0)
                      | (FLAG_CS if has_cs else 0) | (FLAG_AP if has_ap else 0)
                      | (FLAG_COAT if coat == "simple" else 0)
                      | (_GKIND_CODES[gkind] << GKIND_SHIFT)
-                     | (nu << NU_SHIFT))
+                     | (nu << NU_SHIFT) | (nv << NV_SHIFT)
+                     | (basis << BASIS_SHIFT))
     return words
+
+
+def kernel_variant(flags) -> str:
+    """The variant of ``VARIANTS`` the kernels launch for these flags (the
+    host's choice in csrc/gen_trace_common.cuh::variant_of): "freeform"
+    for any sag but the conic and the even/odd aspheres, else "wide" for a
+    tilt, an aperture, a coating or an asphere, else "narrow"."""
+    if any(_GKIND_CODES[f[3]] >= _GKIND_CODES["poly"] for f in flags):
+        return "freeform"
+    if any(f[3] != "conic" or f[5] or f[6] or f[7] != "none" for f in flags):
+        return "wide"
+    return "narrow"
+
+
+@functools.lru_cache(maxsize=None)
+def zernike_terms_table(basis: str, num_terms: int) -> tuple:
+    """The static structure of the first ``num_terms`` Zernike terms of a
+    basis, as both versions of the kernel read it: per term (n, m, the
+    normalization, ((p, coef, p * coef) for each power p of its radial
+    polynomial, in ascending p)). Float64 Python numbers; the CUDA table
+    holds them rounded to float32, as a float32 product rounds them."""
+    from ..core.zernike import _norm_factor, _radial_coeffs, zernike_terms
+    out = []
+    for n, m in zernike_terms(basis, num_terms):
+        radial = sorted((p, c, p * c) for p, c in _radial_coeffs(n, m))
+        out.append((n, m, _norm_factor(basis, n, m), tuple(radial)))
+    return tuple(out)
+
+
+def zernike_table(device=None) -> torch.Tensor:
+    """float32 [3, MAX_TERMS, ZT_W]: the term structure of each basis of
+    ``ZERNIKE_BASES`` for the CUDA kernels (csrc/gen_trace_common.cuh), per
+    term [n, m, norm, number of powers, then (p, coef, p * coef) per power
+    in ascending p], built once per device."""
+    return _zernike_table(str(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _zernike_table(device: str) -> torch.Tensor:
+    tab = np.zeros((len(ZERNIKE_BASES), MAX_TERMS, ZT_W), np.float32)
+    for b, basis in enumerate(ZERNIKE_BASES):
+        for j, (n, m, norm, radial) in enumerate(
+                zernike_terms_table(basis, MAX_TERMS)):
+            if 4 + 3 * len(radial) > ZT_W:
+                raise ValueError("a Zernike term exceeds the table's width")
+            tab[b, j, :4] = (n, m, norm, len(radial))
+            tab[b, j, 4:4 + 3 * len(radial)] = np.ravel(radial)
+    return torch.as_tensor(tab, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -239,13 +349,26 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
     else:
         apr = [0.0, math.inf, 0.0, 0.0]
 
+    # columns 24-25: the sag's own scalars (pallas_trace.py:236-252)
+    gp = sp["geom"]
+    extra = {"chebyshev": lambda: [gp["norm_x"], gp["norm_y"]],
+             "biconic": lambda: [torch.where(
+                 torch.isinf(gp["radius_x"]), 0.0, 1.0 / gp["radius_x"]),
+                 gp["conic_x"]],
+             "toroidal": lambda: [torch.where(
+                 torch.isinf(gp["radius_rot"]), 1.0, gp["radius_rot"]), 0.0],
+             "zernike": lambda: [gp["norm_radius"], 0.0],
+             "fresnel_designed": lambda: [gp["focal_length"],
+                                          gp["n_design"]]}
+    g24 = extra.get(spec.geometry.kind, lambda: [0.0, 0.0])()
+
     # column 27: the signed vertex gap (the split-OPD mode reads it;
     # surface 1's is measured from the launch plane by gen_trace_conic)
     dz_gap = pos[k] - pos[k - 1]
     dz_gap = torch.where(torch.isfinite(dz_gap), dz_gap, 0.0)
     cols = ([radius_inv, conic, pos[k], n1, n2, alpha, coat, wls]
             + rot + tvec + apr
-            + [0.0, 0.0, 0.0, dz_gap, radius_inv_lo, 0.0, 0.0, 0.0])
+            + g24 + [0.0, dz_gap, radius_inv_lo, 0.0, 0.0, 0.0])
     return torch.stack([col(v) for v in cols], dim=-1)
 
 
@@ -266,20 +389,28 @@ def pack_surface_constants(model: OpticModel, params, wavelength):
     return rows[0] if wl.ndim == 0 else rows
 
 
+_COEF_LEAVES = {"even_asphere": "coefficients", "odd_asphere": "coefficients",
+                "polynomial_xy": "coefficients", "chebyshev": "coefficients",
+                "toroidal": "coeffs_poly_y", "zernike": "coefficients"}
+
+
 def pack_asphere_coeffs(model: OpticModel, params):
     """float32 [S-1, C] geometry coefficients, zero-padded, C at least 8 and
-    a multiple of 8 (``pallas_trace.py::pack_asphere_coeffs``): the even or
-    odd asphere's terms; conic and plane surfaces carry none. The packing is
-    differentiable, so coefficient gradients flow back into the tree."""
+    a multiple of 8 (``pallas_trace.py::pack_asphere_coeffs`` and
+    ``_geom_coeff_vector``): the even or odd asphere's terms, the XY
+    polynomial's and the Chebyshev sag's grids row-major (C[i, j] at
+    i * nv + j), the toroid's y-polynomial and the Zernike coefficients;
+    other surfaces carry none. The packing is differentiable, so
+    coefficient gradients flow back into the tree."""
     ref = params["surfaces"][0]["thickness"]
     vecs = []
     for k in range(1, model.num_surfaces):
-        spec = model.surfaces[k]
+        leaf = _COEF_LEAVES.get(model.surfaces[k].geometry.kind)
         v = None
-        if spec.geometry.kind in ("even_asphere", "odd_asphere") \
-                and spec.geometry.num_terms:
-            v = params["surfaces"][k]["geom"]["coefficients"].to(
+        if leaf is not None:
+            v = params["surfaces"][k]["geom"][leaf].to(
                 torch.float32).reshape(-1)
+            v = v if v.shape[0] else None
         vecs.append(v)
     cmax = max([8] + [v.shape[0] for v in vecs if v is not None])
     cmax = ((cmax + 7) // 8) * 8
@@ -382,22 +513,176 @@ def _asphere_sag_grad(ri, conic, coefs, odd: bool, xx, yy):
     return s, gx, gy
 
 
-def _newton(t, x, y, z, L, M, N, ri, conic, coefs, odd: bool):
-    """The asphere intersection from the conic warm start ``t``: exactly
+def _conic_base(ri, conic, xx, yy):
+    """The conic base of the freeform sags: (s, ds/dx, ds/dy) in curvature
+    form with the root's argument clamped to eps
+    (``pallas_trace.py::_conic_base``)."""
+    return _asphere_sag_grad(ri, conic, [], False, xx, yy)
+
+
+def _axis_conic(cv, k, v):
+    """A 1-D conic section's sag and slope in curvature form
+    (``pallas_trace.py::_axis_conic``)."""
+    arg = 1.0 - (1.0 + k) * cv * cv * v * v
+    sq = _sqrt(torch.where(arg > _EPS, arg, _EPS))
+    return cv * v * v / (1.0 + sq), cv * v / sq
+
+
+def _cheb_tu(n, w):
+    """T_0..T_{n-1}(w) and T'_k = k U_{k-1}(w), by the recurrences."""
+    ts, us = [torch.ones_like(w)], [torch.ones_like(w)]
+    if n > 1:
+        ts.append(w)
+    if n > 2:
+        us.append(2.0 * w)
+    for _ in range(2, n):
+        ts.append(2.0 * w * ts[-1] - ts[-2])
+    for _ in range(3, n):
+        us.append(2.0 * w * us[-1] - us[-2])
+    return ts, [torch.zeros_like(w)] + [float(k) * us[k - 1]
+                                        for k in range(1, n)]
+
+
+def _zernike_sag_grad(ri, conic, nr, coefs, basis, xx, yy):
+    """conic + sum_j c_j Z_j(rho / nr, phi) and its slopes
+    (``pallas_trace.py::_zernike_sag_grad``), with the term structure of
+    ``zernike_terms_table``: cos/sin of m phi by the multiple-angle
+    recurrence on (x, y) / r, and each radial polynomial summed in
+    ascending powers of rho."""
+    s, gx, gy = _conic_base(ri, conic, xx, yy)
+    if not coefs:
+        return s, gx, gy
+    terms = zernike_terms_table(basis, len(coefs))
+    r = _sqrt(xx * xx + yy * yy)
+    r_safe = torch.clamp(r, min=1e-12)
+    rho = r / nr
+    cost = xx / r_safe
+    sint = yy / r_safe
+    rp = [torch.ones_like(rho)]
+    for _ in range(max(n for n, _, _, _ in terms)):
+        rp.append(rp[-1] * rho)
+    cs, sn = [torch.ones_like(cost), cost], [torch.zeros_like(sint), sint]
+    for _ in range(2, max(abs(m) for _, m, _, _ in terms) + 1):
+        cs.append(2.0 * cost * cs[-1] - cs[-2])
+        sn.append(2.0 * cost * sn[-1] - sn[-2])
+    dz_drho = torch.zeros_like(rho)
+    dz_dphi = torch.zeros_like(rho)
+    for cj, (n, m, norm, radial) in zip(coefs, terms):
+        Rnm = torch.zeros_like(rho)
+        dR = torch.zeros_like(rho)
+        for p, coef, pcoef in radial:
+            Rnm = Rnm + coef * rp[p]
+            if p > 0:
+                dR = dR + pcoef * rp[p - 1]
+        cj = cj * norm
+        if m == 0:
+            s = s + cj * Rnm
+            dz_drho = dz_drho + cj * dR
+            continue
+        ang, dang = (cs[m], -float(m) * sn[m]) if m > 0 else \
+            (sn[-m], float(-m) * cs[-m])
+        s = s + cj * Rnm * ang
+        dz_drho = dz_drho + cj * dR * ang
+        dz_dphi = dz_dphi + cj * Rnm * dang
+    inv_rs = torch.reciprocal(r_safe)
+    gx = gx + dz_drho * xx * inv_rs / nr - dz_dphi * yy * inv_rs * inv_rs
+    gy = gy + dz_drho * yy * inv_rs / nr + dz_dphi * xx * inv_rs * inv_rs
+    return s, gx, gy
+
+
+def _sag_grad(gkind, nu, nv, gextra, c, coefs, xx, yy):
+    """The Newton sags' (s, ds/dx, ds/dy) at (xx, yy) in the kernel's
+    operation order (``pallas_trace.py::_freeform_sag_grad``), the
+    Chebyshev slope without its 1/norm factor (the reference's quirk).
+    ``c(j)`` is the surface's constant column j; ``coefs`` its
+    coefficients."""
+    ri, conic = c(0), c(1)
+    if gkind in ("even", "odd"):
+        return _asphere_sag_grad(ri, conic, coefs, gkind == "odd", xx, yy)
+    if gkind in ("poly", "cheb"):
+        s, gx, gy = _conic_base(ri, conic, xx, yy)
+        if gkind == "poly":
+            xp, yp = [torch.ones_like(xx)], [torch.ones_like(yy)]
+            for _ in range(nu - 1):
+                xp.append(xp[-1] * xx)
+            for _ in range(nv - 1):
+                yp.append(yp[-1] * yy)
+            dxp = [None] + [float(i) for i in range(1, nu)]
+            dyp = [None] + [float(j) for j in range(1, nv)]
+        else:
+            xp, dxp = _cheb_tu(nu, xx / c(24))
+            yp, dyp = _cheb_tu(nv, yy / c(25))
+        for i in range(nu):
+            for j in range(nv):
+                cij = coefs[i * nv + j]
+                s = s + cij * xp[i] * yp[j]
+                if gkind == "poly":
+                    if i > 0:
+                        gx = gx + dxp[i] * cij * xp[i - 1] * yp[j]
+                    if j > 0:
+                        gy = gy + dyp[j] * cij * xp[i] * yp[j - 1]
+                    continue
+                if i > 0:
+                    gx = gx + cij * dxp[i] * yp[j]
+                if j > 0:
+                    gy = gy + cij * xp[i] * dyp[j]
+        return s, gx, gy
+    if gkind == "biconic":
+        sy, gy = _axis_conic(ri, conic, yy)
+        sx, gx = _axis_conic(c(24), c(25), xx)
+        return sx + sy, gx, gy
+    if gkind in ("toroidal", "toroidal_inf"):
+        zy, dzy = _axis_conic(ri, conic, yy)
+        y2 = yy * yy
+        term, dterm = y2, yy
+        for i, ci in enumerate(coefs):
+            zy = zy + ci * term
+            dzy = dzy + 2.0 * float(i + 1) * ci * dterm
+            term = term * y2
+            dterm = dterm * y2
+        if gkind == "toroidal_inf":
+            return zy, torch.zeros_like(xx), dzy
+        R = c(24)
+        dz = R - zy
+        inside = dz * dz - xx * xx
+        ok = inside > _EPS
+        root = _sqrt(torch.where(ok, inside, _EPS))
+        s = R - torch.where(dz >= 0, 1.0, -1.0) * root
+        sgn_r = torch.where(R >= 0, 1.0, -1.0)
+        inv_root = torch.reciprocal(root)
+        return (s, torch.where(ok, sgn_r * xx * inv_root, 0.0),
+                torch.where(ok, sgn_r * dz * dzy * inv_root, 0.0))
+    if gkind == "zernike":
+        return _zernike_sag_grad(ri, conic, c(24), coefs, gextra, xx, yy)
+    raise ValueError(f"no Newton sag {gkind!r}")
+
+
+def _designed_slope(c, x, y):
+    """The designed Fresnel facet's slopes (dfdx, dfdy): m (x, y) / r with
+    m = -(r / hyp) / (n_design - f / hyp), hyp = sqrt(r^2 + f^2)
+    (``pallas_trace.py:1672-1688``)."""
+    r2 = x * x + y * y
+    r = _sqrt(r2)
+    r_safe = torch.clamp(r, min=1e-12)
+    f_len = c(24)
+    hyp = _sqrt(r2 + f_len * f_len)
+    mslope = -(r / hyp) / (c(25) - f_len / hyp)
+    return mslope * x / r_safe, mslope * y / r_safe
+
+
+def _newton(t, x, y, z, L, M, N, sag):
+    """A Newton sag's intersection from the conic warm start ``t``: exactly
     ``NEWTON_ITERS`` steps without gradient, then one differentiable step,
-    whose gradient is the implicit-function-theorem one (-f_theta / f_t)."""
+    whose gradient is the implicit-function-theorem one (-f_theta / f_t).
+    ``sag(xx, yy)`` gives (s, ds/dx, ds/dy)."""
     with torch.no_grad():
         t_it = t.detach()
-        xs, ys, zs, Ls, Ms, Ns, ris, ks = (
-            v.detach() for v in (x, y, z, L, M, N, ri, conic))
-        cs = [c.detach() for c in coefs]
+        xs, ys, zs, Ls, Ms, Ns = (v.detach() for v in (x, y, z, L, M, N))
         for _ in range(NEWTON_ITERS):
-            s, gx, gy = _asphere_sag_grad(ris, ks, cs, odd, xs + t_it * Ls,
-                                          ys + t_it * Ms)
+            s, gx, gy = sag(xs + t_it * Ls, ys + t_it * Ms)
             f = s - (zs + t_it * Ns)
             t_it = t_it - f / _eps_guard(gx * Ls + gy * Ms - Ns)
-    s, gx, gy = _asphere_sag_grad(ri, conic, coefs, odd, x + t_it * L,
-                                  y + t_it * M)
+    s, gx, gy = sag(x + t_it * L, y + t_it * M)
     f = s - (z + t_it * N)
     return t_it - f / _eps_guard(gx * L + gy * M - N)
 
@@ -414,8 +699,8 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
                     opd_mode: str = "plain"):
     """Plain PyTorch K1 on the packed tables: every elementwise operation of
     ``csrc/gen_trace.cu`` in the same order, broadcast over [W, F, n].
-    ``flags`` are ``model_flags``'; ``acoef`` [S, C] holds the asphere
-    terms; ``opd_mode`` is one of ``OPD_MODES``. Differentiable by autograd
+    ``flags`` are ``model_flags``'; ``acoef`` [S, C] holds the sag
+    coefficients; ``opd_mode`` is one of ``OPD_MODES``. Differentiable by autograd
     (the Newton search is not taped).
 
     In the "split" mode z is local to the last vertex (also in the output),
@@ -453,13 +738,17 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
         z = torch.zeros_like(x)
     sigma = 1.0                 # the static propagation sign
 
-    for k, (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap,
-            coat) in enumerate(flags):
+    for k, (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat,
+            nv, gextra) in enumerate(flags):
         def c(j):                           # per-wavelength constant, [W, 1, 1]
             return consts[:, k, j].reshape(W, 1, 1)
         ri, conic, pos_z, n1, n2, alpha = (c(j) for j in range(6))
-        coefs = [acoef[k, i] for i in range(nu)]
-        odd = gkind == "odd"
+        coefs = [acoef[k, i] for i in range(n_coefs(gkind, nu, nv))]
+        fresnel = gkind in FRESNEL_KINDS
+        newton = gkind != "conic" and not fresnel
+
+        def sag(xx, yy):
+            return _sag_grad(gkind, nu, nv, gextra, c, coefs, xx, yy)
 
         # localize: v_local = R^T (v - t)
         if has_cs:
@@ -477,7 +766,7 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
         else:
             z = z - pos_z
 
-        if is_plane:
+        if is_plane or fresnel:             # the thin Fresnel base plane
             t = -z / N
         else:
             t0 = -z / N
@@ -497,8 +786,8 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
             tq = torch.where(ok, tq, 0.0)
             t = t0 + tq
             valid = valid & ok
-        if gkind != "conic":
-            t = _newton(t, x, y, z, L, M, N, ri, conic, coefs, odd)
+        if newton:
+            t = _newton(t, x, y, z, L, M, N, sag)
         x = x + t * L
         y = y + t * M
         z = z + t * N
@@ -531,9 +820,10 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
             r2a = xa * xa + ya * ya
             inten = inten * ((r2a >= c(20)) & (r2a <= c(21))).to(inten.dtype)
 
-        if gkind == "conic" and is_plane and is_refl:
+        conic_like = gkind in ("conic", "fresnel_zone")
+        if conic_like and is_plane and is_refl:
             N = -N
-        elif gkind == "conic" and is_plane:
+        elif conic_like and is_plane:
             u = n1 / n2
             disc_r = 1.0 - u * u * (1.0 - N * N)
             ok_r = disc_r >= 0
@@ -541,15 +831,17 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
             valid = valid & ok_r
             L, M, N = u * L, u * M, torch.sign(N) * root_r
         else:
-            if gkind == "conic":
+            if conic_like:                  # a zoned lens: the parent's slope
                 r2 = x * x + y * y
                 arg = 1.0 - (1.0 + conic) * ri * ri * r2
                 inv_root = torch.reciprocal(_sqrt(
                     torch.where(arg > _EPS, arg, 1.0)))
                 dfdx = x * ri * inv_root
                 dfdy = y * ri * inv_root
-            else:                           # the asphere's own slope
-                _, dfdx, dfdy = _asphere_sag_grad(ri, conic, coefs, odd, x, y)
+            elif gkind == "fresnel_designed":
+                dfdx, dfdy = _designed_slope(c, x, y)
+            else:                           # the Newton sag's own slope
+                _, dfdx, dfdy = sag(x, y)
             inv_n = torch.reciprocal(_sqrt(dfdx * dfdx + dfdy * dfdy
                                            + 1.0))
             nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
@@ -614,7 +906,7 @@ def _find_nvcc() -> str:
 # each library's C entry points: (name, argument types, result type)
 _SIGNATURES = {
     "gen_trace": [
-        ("gen_trace_launch", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        ("gen_trace_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
          ctypes.c_int)],
 }
@@ -626,7 +918,7 @@ for _lib in GRAD_LIBS.values():
     _SIGNATURES[_lib] = [
         ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
          + [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
-        ("gen_grad_launch", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+        ("gen_grad_launch", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
          ctypes.c_int)]
 
@@ -709,7 +1001,7 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
     if len(flags) != S or not 1 <= S <= MAX_SURFACES:
         raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
                          f"each, got {S} surfaces and {len(flags)} flags")
-    if any(f[4] > acoef.shape[1] for f in flags):
+    if any(n_coefs(f[3], f[4], f[8]) > acoef.shape[1] for f in flags):
         raise ValueError("acoef has fewer columns than a surface's terms")
     if not (1 <= F <= 65535 and 1 <= W <= 65535):
         raise ValueError("F and W must be in 1..65535")
@@ -732,7 +1024,9 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.gen_trace_launch(gen.data_ptr(), consts.data_ptr(),
-                                   acoef.data_ptr(), Px.data_ptr(),
+                                   acoef.data_ptr(),
+                                   zernike_table(dev).data_ptr(),
+                                   Px.data_ptr(),
                                    Py.data_ptr(), out.data_ptr(),
                                    ctypes.addressof(words), S, F, W, C, n,
                                    int(bool(final_prop)), mode, stream)
@@ -740,11 +1034,13 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
         raise RuntimeError(f"gen_trace kernel launch failed: CUDA error {err}")
     gen_trace_cuda.launches += 1
     gen_trace_cuda.launches_by_mode[opd_mode] += 1
+    gen_trace_cuda.launches_by_variant[kernel_variant(flags)] += 1
     return out
 
 
 gen_trace_cuda.launches = 0
 gen_trace_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
+gen_trace_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,

@@ -19,9 +19,7 @@ __all__ = ["Variable", "VariableList", "make_variable", "NOT_PORTED"]
 
 # variable types of the JAX package whose leaves the port's parameter tree
 # does not have yet (ROADMAP.md)
-NOT_PORTED = ("polynomial_coeff", "chebyshev_coeff",
-              "zernike_coeff", "norm_radius", "norm_x", "norm_y", "f",
-              "grating_period", "grid_sag", "nurbs_ctrlpt",
+NOT_PORTED = ("f", "grating_period", "grid_sag", "nurbs_ctrlpt",
               "nurbs_control_point", "nurbs_weight", "material")
 
 
@@ -85,6 +83,9 @@ _PATHS = {
     "tilt_x": ("cs", "rx"),
     "tilt_y": ("cs", "ry"),
     "tilt_z": ("cs", "rz"),
+    "norm_radius": ("geom", "norm_radius"),
+    "norm_x": ("geom", "norm_x"),
+    "norm_y": ("geom", "norm_y"),
 }
 
 
@@ -93,7 +94,10 @@ def make_variable(model, variable_type: str, surface_number: int = None,
     """A Variable for a reference-style variable type: radius,
     reciprocal_radius, conic, thickness, index, abbe, decenter_x/y/z and
     tilt_x/y/z (on surfaces built with a tilt or decenter), asphere_coeff
-    (``coeff_number=i`` of an even or odd asphere), or ``path``
+    (``coeff_number=i`` of an even or odd asphere), polynomial_coeff,
+    chebyshev_coeff and zernike_coeff (``coeff_index=(i, j)`` of a grid or
+    ``coeff_number=i``), norm_radius (Zernike), norm_x and norm_y
+    (Chebyshev), or ``path``
     (``path=...``, optional ``element=...``). The JAX package's other types
     (``NOT_PORTED``) raise NotImplementedError."""
     t = variable_type
@@ -104,6 +108,11 @@ def make_variable(model, variable_type: str, surface_number: int = None,
     elif t == "asphere_coeff":
         v = Variable(("surfaces", surface_number, "geom", "coefficients"),
                      element=(kw["coeff_number"],))
+    elif t in ("polynomial_coeff", "chebyshev_coeff", "zernike_coeff"):
+        idx = kw.get("coeff_index", kw.get("coeff_number"))
+        v = Variable(("surfaces", surface_number, "geom", "coefficients"),
+                     element=tuple(idx) if isinstance(idx, (tuple, list))
+                     else (idx,))
     elif t == "path":
         v = Variable(tuple(kw["path"]), element=kw.get("element"))
     elif t in NOT_PORTED:

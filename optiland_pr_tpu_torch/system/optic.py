@@ -1,6 +1,7 @@
 """The user-facing system builder (port of ``optiland_pr_tpu/system/optic.py``
-for standard, plane and even/odd aspheric surfaces that refract or reflect,
-with radial apertures, simple coatings and tilts/decenters).
+for standard, plane, even/odd aspheric, XY-polynomial, Chebyshev, biconic,
+toroidal, Zernike and thin Fresnel surfaces that refract or reflect, with
+radial apertures, simple coatings and tilts/decenters).
 
 ``Optic`` is a mutable host-side builder; ``build(device, dtype)`` compiles it
 into a static ``OpticModel`` and a parameter tree of tensors on ``device``.
@@ -14,7 +15,10 @@ import numpy as np
 
 from ..config import default_float, resolve_device
 from ..core.distributions import generate_distribution
-from ..geometry import EvenAsphere, OddAsphere, Plane, StandardGeometry
+from ..geometry import (Biconic, ChebyshevSag, EvenAsphere,
+                        FresnelDesignedSag, FresnelZoneSag, OddAsphere,
+                        Plane, PolynomialXY, StandardGeometry, Toroidal,
+                        ZernikeSag)
 from ..materials import resolve_material
 from ..materials.base import Mirror
 from ..trace.paraxial import Paraxial
@@ -32,7 +36,22 @@ _GEOMETRY_BUILDERS = {
     "even_asphere": lambda kw: EvenAsphere(len(kw.get("coefficients")
                                                or [])),
     "odd_asphere": lambda kw: OddAsphere(len(kw.get("coefficients") or [])),
+    "polynomial": lambda kw: PolynomialXY(*_shape2d(kw.get("coefficients"))),
+    "chebyshev": lambda kw: ChebyshevSag(*_shape2d(kw.get("coefficients"))),
+    "biconic": lambda kw: Biconic(),
+    "toroidal": lambda kw: Toroidal(len(kw.get("coeffs_poly_y") or [])),
+    "zernike": lambda kw: ZernikeSag(len(kw.get("coefficients") or []),
+                                     kw.get("zernike_type", "standard")),
+    "fresnel_zone": lambda kw: FresnelZoneSag(),
+    "fresnel_designed": lambda kw: FresnelDesignedSag(),
 }
+
+
+def _shape2d(coeffs) -> tuple:
+    """(num_x, num_y) of a coefficient grid; (1, 1) for none."""
+    if coeffs is None:
+        return (1, 1)
+    return np.atleast_2d(np.asarray(coeffs)).shape
 
 
 class Optic:
@@ -71,8 +90,13 @@ class Optic:
                     coating=None, **geom_kw):
         """Add (or insert) a surface. The ported surface types are
         ``standard``, ``plane``, ``even_asphere`` and ``odd_asphere`` (with
-        ``coefficients=[...]``); others raise at ``build``. ``coating`` is a
-        ``CoatingDef`` or ``"fresnel"``."""
+        ``coefficients=[...]``), ``polynomial`` and ``chebyshev`` (a
+        coefficient grid, Chebyshev with ``norm_x``/``norm_y``), ``biconic``
+        (``radius_x``, ``conic_x``), ``toroidal`` (``radius_rot``,
+        ``coeffs_poly_y``), ``zernike`` (``coefficients``, ``zernike_type``,
+        ``norm_radius``), ``fresnel_zone`` (``zone_depth``) and
+        ``fresnel_designed`` (``focal_length``, ``n_design``); others raise at
+        ``build``. ``coating`` is a ``CoatingDef`` or ``"fresnel"``."""
         entry = dict(surface_type=surface_type, radius=radius,
                      thickness=thickness, conic=conic, material=material,
                      is_stop=is_stop, comment=comment, dx=dx, dy=dy, dz=dz,
@@ -139,6 +163,12 @@ class Optic:
         kw["coefficients"] = coeffs
         self._dirty()
 
+    def set_norm_radius(self, value, surface_number: int):
+        """Set the normalization radius of a Zernike surface."""
+        self._surfaces[surface_number]["geom_kw"]["norm_radius"] = \
+            float(value)
+        self._dirty()
+
     def scale_system(self, scale_factor: float):
         """Scale every length by ``scale_factor``: finite radii and
         thicknesses, the EPD (or float-by-stop-size) aperture value and every
@@ -189,6 +219,9 @@ class Optic:
             # the inf-ness of a radius is structure: read it from the host
             # input, never from a device tensor
             geometry.radius_is_inf = host_isinf(gkw.get("radius"), False)
+            if isinstance(geometry, Toroidal):
+                geometry.radius_rot_is_inf = host_isinf(
+                    gkw.get("radius_rot", math.inf), False)
 
             mat_spec = e["material"]
             is_reflective = isinstance(mat_spec, str) and \

@@ -5,8 +5,11 @@ import math
 
 import jax
 import jax.numpy as jnp
+import torch
 
 import optiland_pr_tpu.kernels.pallas_trace as jpt
+from chip_smoke import (FREEFORM_KW, bench_freeform, freeform_singlet,
+                        zoned_concentrator)
 import optiland_pr_tpu.samples as jsamples
 import optiland_pr_tpu_torch.samples as tsamples
 from optiland_pr_tpu.system import apertures as japertures
@@ -15,6 +18,10 @@ from optiland_pr_tpu.system.optic import Optic as JOptic
 from optiland_pr_tpu_torch.system import apertures as tapertures
 from optiland_pr_tpu_torch.system import coatings as tcoatings
 from optiland_pr_tpu_torch.system.optic import Optic as TOptic
+
+# The test workers run beside each other, several to the machine's cores;
+# the port's small CPU tensors gain nothing from 8 intra-op threads apiece.
+torch.set_num_threads(2)
 
 
 def jax_tir_singlet():
@@ -79,6 +86,74 @@ def _singlet(optic):
     return lens
 
 
+def _newton_stack(optic):
+    """Three Newton sags in one stack, on the faces of two thin lenses: a
+    3 x 3 Chebyshev grid, six standard Zernike terms and a toroid, then a
+    conic, fields 0 and 2 degrees. The grid and the Zernike terms are cut
+    from the suite's singlets, and the other Newton kinds left to the
+    singlets, so that the JAX K2 of the stack takes seconds in the Pallas
+    interpreter."""
+    cheb = [[0.0, 1e-4, 0.0], [5e-5, 0.0, 1e-5], [0.0, 3e-5, 0.0]]
+    faces = (
+        ("chebyshev", 60.0, 6.0, 1.5168,
+         dict(norm_x=10.0, norm_y=10.0, coefficients=cheb)),
+        ("zernike", -320.0, 4.0, None,
+         dict(zernike_type="standard", norm_radius=10.0,
+              coefficients=[0.0, 2e-4, -1e-4, 5e-4, 3e-4, -2e-4])),
+        ("toroidal", 80.0, 5.0, 1.5168,
+         dict(radius_rot=150.0, coeffs_poly_y=[1e-5])),
+        ("standard", -150.0, 60.0, None, {}))
+    lens = optic(name="freeform stack")
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    for k, (surface_type, radius, thickness, material, kw) in enumerate(
+            faces, start=1):
+        lens.add_surface(index=k, radius=radius, thickness=thickness,
+                         material=material, is_stop=k == 1,
+                         surface_type=surface_type, **kw)
+    lens.add_surface(index=len(faces) + 1)
+    lens.set_aperture(aperture_type="EPD", value=12.0)
+    lens.set_field_type(field_type="angle")
+    lens.add_field(y=0)
+    lens.add_field(y=2)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
+def _fresnel_stack(optic):
+    """Both thin Fresnel kinds: a zoned lens on the front of an N-BK7 plate
+    whose exit face is a designed Fresnel lens, fields 0 and 2 degrees."""
+    lens = optic(name="Fresnel stack")
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=200.0, conic=-0.5, thickness=5.0,
+                     material="N-BK7", is_stop=True,
+                     surface_type="fresnel_zone", zone_depth=0.5)
+    lens.add_surface(index=2, surface_type="fresnel_designed",
+                     focal_length=150.0, n_design=1.5168, zone_depth=0.5,
+                     thickness=100.0)
+    lens.add_surface(index=3)
+    lens.set_aperture(aperture_type="EPD", value=20.0)
+    lens.set_field_type(field_type="angle")
+    lens.add_field(y=0)
+    lens.add_field(y=2)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
+def freeform_builders(name):
+    """(JAX builder, port builder) of a freeform system: "singlet:<kind>"
+    (the JAX kernel suite's singlets, ``chip_smoke.FREEFORM_KW``),
+    "bench:cheb" and
+    "bench:zernike" (the JAX bench's freeform singlets), "concentrator",
+    "newton_stack" or "fresnel_stack"."""
+    kind, _, arg = name.partition(":")
+    make = {"singlet": lambda o: freeform_singlet(arg, o),
+            "bench": lambda o: bench_freeform(arg, o),
+            "concentrator": lambda o: zoned_concentrator(o),
+            "newton_stack": _newton_stack,
+            "fresnel_stack": _fresnel_stack}[kind]
+    return (lambda: make(JOptic)), (lambda: make(TOptic))
+
+
 def jax_combined():
     return _combined(JOptic, jcoatings, japertures)
 
@@ -125,8 +200,8 @@ def jax_flags_as_port(flags) -> tuple:
     """The JAX package's kernel flags (is_plane, is_refl, absorbing, gkind,
     nu, nv, has_cs, has_ap, coat, gextra, inter) as the port's: the fields
     of the ported sub-slices, (is_plane, is_refl, absorbing, gkind, nu,
-    has_cs, has_ap, coat)."""
-    return tuple((f[0], f[1], f[2], f[3], f[4], f[6], f[7], f[8])
+    has_cs, has_ap, coat, nv, gextra)."""
+    return tuple((f[0], f[1], f[2], f[3], f[4], f[6], f[7], f[8], f[5], f[9])
                  for f in flags)
 
 

@@ -184,6 +184,38 @@ def test_wavefront_data_matches_jax(singlet, strategy):
     _hold_wavefront(dt, dj)
 
 
+@pytest.fixture(scope="module")
+def hubble():
+    """The Hubble telescope in both packages, float64 on the CPU."""
+    jb, tb = builders("HubbleTelescope")
+    return jb, tb, jb().build(), tb().build(device="cpu")
+
+
+def test_best_fit_sphere_on_hubble_matches_jax(hubble):
+    """The least-squares sphere at telescope scale (field (0, 1)): its
+    design matrix has cond(A) ~1e8, so a solve through the normal
+    equations (cond ~1e16) lost the radius (6112.5 against 18568.8 mm).
+    The radius and the pupil points are held at the tolerances of
+    ``_hold_wavefront``; the OPD at 2e-6 waves, because each package's
+    float64 solve of this A is itself ~6e-9 mm from the exact sphere (an
+    extended-precision solve), which moves the OPD by ~1e-6 waves."""
+    _, _, (jm, jp), (tm, tp) = hubble
+    px, py = jgd("hexapolar", RINGS)
+    dj = jwf.wavefront_data(jm, jp, (0.0, 1.0), 0.55, px, py,
+                            strategy="best_fit_sphere", engine="xla")
+    tpx, tpy = tgd("hexapolar", RINGS, device="cpu")
+    dt = twf.wavefront_data(tm, tp, (0.0, 1.0), 0.55, tpx, tpy,
+                            strategy="best_fit_sphere")
+    np.testing.assert_allclose(_np(dt.radius), np.asarray(dj.radius),
+                               rtol=1e-10)
+    for k in ("pupil_x", "pupil_y", "pupil_z"):
+        np.testing.assert_allclose(_np(getattr(dt, k)),
+                                   np.asarray(getattr(dj, k)), rtol=0,
+                                   atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(_np(dt.opd), np.asarray(dj.opd), rtol=0,
+                               atol=2e-6)
+
+
 def test_wavefront_grid_matches_jax(singlet):
     """Two fields x two wavelengths: every leaf [F, W, ...], each pair the
     JAX package's wavefront, and the tilt removal of one pair."""

@@ -1348,7 +1348,9 @@ static int launch_grad(dim3 grid, cudaStream_t st, const float* gen,
 // floats per surface; ztab is the device Zernike table; opd_mode must be
 // this library's GRAD_MODE; part holds gen_grad_partials_size floats;
 // dpx_wf/dpy_wf hold W*F*n floats each, or are null (then dpx/dpy are not
-// written). Allocates nothing and does not synchronise.
+// written). On success *variant, when not null, is the variant launched
+// (VAR_NARROW, VAR_WIDE or VAR_FREEFORM). Allocates nothing and does not
+// synchronise.
 extern "C" int gen_grad_launch(const float* gen, const float* consts,
                                const float* acoef, const float* ztab,
                                const float* px,
@@ -1357,7 +1359,7 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
                                float* dconsts, float* dacoef, float* dpx,
                                float* dpy, const int32_t* flags, int S, int F,
                                int W, int C, long long n, int final_prop,
-                               int opd_mode, void* stream) {
+                               int opd_mode, void* stream, int* variant) {
     GradLayout g;
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
         n < 1 || C < 0 || (dpx_wf == nullptr) != (dpy_wf == nullptr) ||
@@ -1385,6 +1387,7 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
                                       py, cot, part, dpx_wf, dpy_wf, g, S, F, W,
                                       C, n, nblk, final_prop);
     if (err) return err;
+    if (variant != nullptr) *variant = var;
     const long long n_out = (long long)W * S * CONST_W + (long long)F * GEN_W
                             + (long long)S * C;
     gen_grad_reduce<<<(unsigned)n_out, RBLOCK, 0, st>>>(part, dgen, dconsts,

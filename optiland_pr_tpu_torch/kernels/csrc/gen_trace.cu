@@ -135,15 +135,16 @@ static void launch_mode(int var, dim3 grid, cudaStream_t st,
 // Launch on ``stream``; returns cudaGetLastError() (0 on success). flags is a
 // host array of S words; acoef has C floats per surface; ztab is the device
 // Zernike table; opd_mode is OPD_PLAIN, OPD_KAHAN or OPD_SPLIT (the last for
-// untilted conic/plane stacks only). Allocates nothing and does not
-// synchronise.
+// untilted conic/plane stacks only). On success *variant, when not null,
+// is the variant launched (VAR_NARROW, VAR_WIDE or VAR_FREEFORM). Allocates
+// nothing and does not synchronise.
 extern "C" int gen_trace_launch(const float* gen, const float* consts,
                                 const float* acoef, const float* ztab,
                                 const float* px,
                                 const float* py, float* out,
                                 const int32_t* flags, int S, int F, int W,
                                 int C, long long n, int final_prop,
-                                int opd_mode, void* stream) {
+                                int opd_mode, void* stream, int* variant) {
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
         n < 1 || C < 0 || opd_mode < OPD_PLAIN || opd_mode > OPD_SPLIT)
         return (int)cudaErrorInvalidValue;
@@ -167,5 +168,7 @@ extern "C" int gen_trace_launch(const float* gen, const float* consts,
     else
         launch_mode<OPD_PLAIN>(var, grid, st, gen, consts, acoef, ztab, px, py,
                                out, fl, S, F, W, C, n, final_prop);
-    return (int)cudaGetLastError();
+    const int err = (int)cudaGetLastError();
+    if (err == 0 && variant != nullptr) *variant = var;
+    return err;
 }

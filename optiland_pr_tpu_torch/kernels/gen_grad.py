@@ -28,7 +28,7 @@ import torch
 
 from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, OPD_MODES, VARIANTS,
                         build_kernel, check_tables, gen_trace_cuda,
-                        gen_trace_plain, kernel_variant, zernike_table)
+                        gen_trace_plain, zernike_table)
 
 __all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
 
@@ -76,18 +76,20 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
         dpx = dpy = None
         ptrs = outs = [None, None]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         err = lib.gen_grad_launch(
             gen.data_ptr(), consts.data_ptr(), acoef.data_ptr(),
-            zernike_table(dev).data_ptr(), Px.data_ptr(), Py.data_ptr(), cot.data_ptr(), part.data_ptr(),
+            zernike_table(dev).data_ptr(), Px.data_ptr(), Py.data_ptr(),
+            cot.data_ptr(), part.data_ptr(),
             *ptrs, dgen.data_ptr(), dconsts.data_ptr(), dacoef.data_ptr(),
             *outs, ctypes.addressof(words), S, F, W, C, n,
-            int(bool(final_prop)), mode, stream)
+            int(bool(final_prop)), mode, stream, ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"gen_grad kernel launch failed: CUDA error {err}")
     gen_trace_bwd_cuda.launches += 1
     gen_trace_bwd_cuda.launches_by_mode[opd_mode] += 1
-    gen_trace_bwd_cuda.launches_by_variant[kernel_variant(flags)] += 1
+    gen_trace_bwd_cuda.launches_by_variant[VARIANTS[variant.value]] += 1
     return dgen, dconsts, dacoef, dpx, dpy
 
 

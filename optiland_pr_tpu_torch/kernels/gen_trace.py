@@ -53,6 +53,7 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,7 +64,7 @@ from ..system.model import OpticModel, positions_from_params
 
 __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
            "model_flags", "NEWTON_ITERS", "OPD_MODES", "GRAD_LIBS",
-           "ZERNIKE_BASES", "VARIANTS", "kernel_variant", "zernike_table",
+           "ZERNIKE_BASES", "VARIANTS", "SurfaceFlags", "zernike_table",
            "n_coefs",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
            "gen_trace_plain", "gen_trace_cuda", "gen_trace_conic",
@@ -100,8 +101,9 @@ _KERNEL_KINDS = {"standard": "conic", "plane": "conic",
                  "fresnel_designed": "fresnel_designed"}
 FRESNEL_KINDS = ("fresnel_zone", "fresnel_designed")
 # the kernels' variants (csrc/gen_trace_common.cuh: VAR_NARROW, VAR_WIDE,
-# VAR_FREEFORM): sub-slice (a); with (b) and the even/odd aspheres; with the
-# other sags of (c)
+# VAR_FREEFORM), by the codes the launchers report: sub-slice (a); with (b)
+# and the even/odd aspheres; with the other sags of (c). The launchers pick
+# the variant (variant_of) and the wrappers count what they report
 VARIANTS = ("narrow", "wide", "freeform")
 # the Zernike bases by their codes in the flag word
 ZERNIKE_BASES = ("standard", "fringe", "noll")
@@ -184,18 +186,31 @@ def _hint_isinf(spec, params, k, key: str) -> bool:
     return bool(hint)
 
 
+class SurfaceFlags(NamedTuple):
+    """Static flags of an inner surface, the JAX package's fields of this
+    scope (``pallas_trace.py::model_flags``) in the port's order. gkind is
+    "conic", "even", "odd", "poly", "cheb", "biconic", "toroidal",
+    "toroidal_inf" (an infinite rotation radius), "zernike", "fresnel_zone"
+    or "fresnel_designed"; nu the number of sag terms or the x size of a
+    coefficient grid, nv its y size (else 0); coat "none", "simple" or
+    "fresnel"; gextra the Zernike basis (else None)."""
+    is_plane: bool
+    is_refl: bool
+    absorbing: bool
+    gkind: str
+    nu: int
+    has_cs: bool
+    has_ap: bool
+    coat: str
+    nv: int = 0
+    gextra: Optional[str] = None
+
+
 def model_flags(model: OpticModel, params=None) -> tuple:
-    """Static flags per inner surface: (is_plane, is_reflective, absorbing,
-    gkind, nu, has_cs, has_ap, coat, nv, gextra), the JAX package's fields
-    of this scope (``pallas_trace.py::model_flags``) in the port's order.
-    gkind is "conic", "even", "odd", "poly", "cheb", "biconic",
-    "toroidal", "toroidal_inf" (an infinite rotation radius), "zernike",
-    "fresnel_zone" or "fresnel_designed"; nu the number of sag terms or the
-    x size of a coefficient grid, nv its y size (else 0); coat "none",
-    "simple" or "fresnel"; gextra the Zernike basis (else None).
-    ``is_plane`` and a toroid's infinite rotation radius are read from the
-    host-side hints ``radius_is_inf``/``radius_rot_is_inf`` (stamped by
-    ``Optic.build``); a geometry without them is read from ``params``."""
+    """``SurfaceFlags`` per inner surface. ``is_plane`` and a toroid's
+    infinite rotation radius are read from the host-side hints
+    ``radius_is_inf``/``radius_rot_is_inf`` (stamped by ``Optic.build``); a
+    geometry without them is read from ``params``."""
     flags = []
     for k in range(1, model.num_surfaces):
         spec = model.surfaces[k]
@@ -208,10 +223,10 @@ def model_flags(model: OpticModel, params=None) -> tuple:
             gkind = "toroidal_inf"
         gextra = spec.geometry.zernike_type if gkind == "zernike" else None
         coat = "none" if spec.coating is None else spec.coating.kind
-        flags.append((bool(is_plane), bool(spec.is_reflective),
-                      bool(absorbing), gkind, nu,
-                      bool(spec.has_tilt_decenter),
-                      spec.aperture is not None, coat, nv, gextra))
+        flags.append(SurfaceFlags(bool(is_plane), bool(spec.is_reflective),
+                                  bool(absorbing), gkind, nu,
+                                  bool(spec.has_tilt_decenter),
+                                  spec.aperture is not None, coat, nv, gextra))
     return tuple(flags)
 
 
@@ -235,18 +250,6 @@ def _flag_words(flags) -> list:
                      | (nu << NU_SHIFT) | (nv << NV_SHIFT)
                      | (basis << BASIS_SHIFT))
     return words
-
-
-def kernel_variant(flags) -> str:
-    """The variant of ``VARIANTS`` the kernels launch for these flags (the
-    host's choice in csrc/gen_trace_common.cuh::variant_of): "freeform"
-    for any sag but the conic and the even/odd aspheres, else "wide" for a
-    tilt, an aperture, a coating or an asphere, else "narrow"."""
-    if any(_GKIND_CODES[f[3]] >= _GKIND_CODES["poly"] for f in flags):
-        return "freeform"
-    if any(f[3] != "conic" or f[5] or f[6] or f[7] != "none" for f in flags):
-        return "wide"
-    return "narrow"
 
 
 @functools.lru_cache(maxsize=None)
@@ -713,7 +716,7 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     if opd_mode not in OPD_MODES:
         raise ValueError(f"unknown OPD mode {opd_mode!r}")
     split = opd_mode == "split"
-    if split and any(f[3] != "conic" or f[5] for f in flags):
+    if split and any(f.gkind != "conic" or f.has_cs for f in flags):
         raise ValueError("the split-OPD mode takes untilted conic/plane "
                          "surfaces only")
 
@@ -907,8 +910,8 @@ def _find_nvcc() -> str:
 _SIGNATURES = {
     "gen_trace": [
         ("gen_trace_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-         ctypes.c_int)],
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int)], ctypes.c_int)],
 }
 # K2: one library per OPD mode (csrc/gen_grad.cu, gen_grad_kahan.cu,
 # gen_grad_split.cu), one signature
@@ -919,8 +922,8 @@ for _lib in GRAD_LIBS.values():
         ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
          + [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
         ("gen_grad_launch", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-         ctypes.c_int)]
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
 
 # what ptxas said about each library built in this process (-Xptxas -v:
 # registers, spills, shared memory per kernel)
@@ -975,12 +978,13 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
     """Raise ValueError unless the kernels take these inputs: contiguous
     float32 CUDA tensors on one device (``more`` names further ones), gen
     [F, 16], consts [W, S, 32], acoef [S, C] with C at least every surface's
-    asphere terms, Px/Py [n], one flag tuple per surface, an OPD mode of
+    asphere terms, Px/Py [n], one ``SurfaceFlags`` per surface, an OPD mode of
     ``OPD_MODES`` (the split mode for untilted conic/plane surfaces only).
     Returns (W, S, F, n, C), the flag words and the mode's code."""
     if opd_mode not in OPD_MODES:
         raise ValueError(f"unknown OPD mode {opd_mode!r}")
-    if opd_mode == "split" and any(f[3] != "conic" or f[5] for f in flags):
+    if opd_mode == "split" and any(f.gkind != "conic" or f.has_cs
+                                   for f in flags):
         raise ValueError("the split-OPD mode takes untilted conic/plane "
                          "surfaces only")
     dev = Px.device
@@ -1001,7 +1005,7 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
     if len(flags) != S or not 1 <= S <= MAX_SURFACES:
         raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
                          f"each, got {S} surfaces and {len(flags)} flags")
-    if any(n_coefs(f[3], f[4], f[8]) > acoef.shape[1] for f in flags):
+    if any(n_coefs(f.gkind, f.nu, f.nv) > acoef.shape[1] for f in flags):
         raise ValueError("acoef has fewer columns than a surface's terms")
     if not (1 <= F <= 65535 and 1 <= W <= 65535):
         raise ValueError("F and W must be in 1..65535")
@@ -1022,6 +1026,7 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     lib = build_kernel("gen_trace")
     words = (ctypes.c_int32 * S)(*words)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         err = lib.gen_trace_launch(gen.data_ptr(), consts.data_ptr(),
                                    acoef.data_ptr(),
@@ -1029,12 +1034,13 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
                                    Px.data_ptr(),
                                    Py.data_ptr(), out.data_ptr(),
                                    ctypes.addressof(words), S, F, W, C, n,
-                                   int(bool(final_prop)), mode, stream)
+                                   int(bool(final_prop)), mode, stream,
+                                   ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"gen_trace kernel launch failed: CUDA error {err}")
     gen_trace_cuda.launches += 1
     gen_trace_cuda.launches_by_mode[opd_mode] += 1
-    gen_trace_cuda.launches_by_variant[kernel_variant(flags)] += 1
+    gen_trace_cuda.launches_by_variant[VARIANTS[variant.value]] += 1
     return out
 
 
@@ -1124,7 +1130,7 @@ def axial_base(consts, flags):
     sig, sigma = [], 1.0
     for f in flags:
         sig.append(sigma)
-        if f[1]:
+        if f.is_refl:
             sigma = -sigma
     sig = torch.tensor(sig, dtype=consts.dtype, device=consts.device)
     return torch.sum(sig * consts[:, :, 3] * consts[:, :, 27], dim=1)

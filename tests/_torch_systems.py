@@ -15,6 +15,7 @@ import optiland_pr_tpu_torch.samples as tsamples
 from optiland_pr_tpu.system import apertures as japertures
 from optiland_pr_tpu.system import coatings as jcoatings
 from optiland_pr_tpu.system.optic import Optic as JOptic
+from optiland_pr_tpu_torch.kernels.gen_trace import SurfaceFlags
 from optiland_pr_tpu_torch.system import apertures as tapertures
 from optiland_pr_tpu_torch.system import coatings as tcoatings
 from optiland_pr_tpu_torch.system.optic import Optic as TOptic
@@ -103,7 +104,33 @@ def _newton_stack(optic):
         ("toroidal", 80.0, 5.0, 1.5168,
          dict(radius_rot=150.0, coeffs_poly_y=[1e-5])),
         ("standard", -150.0, 60.0, None, {}))
-    lens = optic(name="freeform stack")
+    return _thin_lenses(optic, "freeform stack", faces)
+
+
+def _leaves_stack(optic):
+    """The Newton kinds and bases the Newton stack leaves out, on the faces
+    of three thin lenses: a 3 x 3 XY polynomial, a biconic, a toroid at an
+    infinite rotation radius, six fringe and six Noll Zernike terms, then a
+    conic, fields 0 and 2 degrees."""
+    poly = [[0.0, 0.0, 1e-5], [0.0, 2e-6, 0.0], [1e-5, 0.0, 0.0]]
+    faces = (
+        ("polynomial", 60.0, 6.0, 1.5168, dict(coefficients=poly)),
+        ("biconic", -320.0, 3.0, None, dict(radius_x=-250.0, conic_x=-0.5)),
+        ("toroidal", 80.0, 5.0, 1.5168, dict(coeffs_poly_y=[1e-5, -2e-7])),
+        ("zernike", -150.0, 3.0, None,
+         dict(zernike_type="fringe", norm_radius=10.0,
+              coefficients=[0.0, 1e-4, -2e-4, 4e-4, 2e-4, 1e-4])),
+        ("zernike", 120.0, 4.0, 1.5168,
+         dict(zernike_type="noll", norm_radius=9.0,
+              coefficients=[0.0, -1e-4, 2e-4, 3e-4, -2e-4, 1e-4])),
+        ("standard", -200.0, 50.0, None, {}))
+    return _thin_lenses(optic, "freeform leaves stack", faces)
+
+
+def _thin_lenses(optic, name, faces):
+    """Faces (surface type, radius, thickness, material, keywords) after
+    the object, the first the stop, EPD 12, fields 0 and 2 degrees."""
+    lens = optic(name=name)
     lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
     for k, (surface_type, radius, thickness, material, kw) in enumerate(
             faces, start=1):
@@ -144,12 +171,13 @@ def freeform_builders(name):
     (the JAX kernel suite's singlets, ``chip_smoke.FREEFORM_KW``),
     "bench:cheb" and
     "bench:zernike" (the JAX bench's freeform singlets), "concentrator",
-    "newton_stack" or "fresnel_stack"."""
+    "newton_stack", "leaves_stack" or "fresnel_stack"."""
     kind, _, arg = name.partition(":")
     make = {"singlet": lambda o: freeform_singlet(arg, o),
             "bench": lambda o: bench_freeform(arg, o),
             "concentrator": lambda o: zoned_concentrator(o),
             "newton_stack": _newton_stack,
+            "leaves_stack": _leaves_stack,
             "fresnel_stack": _fresnel_stack}[kind]
     return (lambda: make(JOptic)), (lambda: make(TOptic))
 
@@ -201,8 +229,8 @@ def jax_flags_as_port(flags) -> tuple:
     nu, nv, has_cs, has_ap, coat, gextra, inter) as the port's: the fields
     of the ported sub-slices, (is_plane, is_refl, absorbing, gkind, nu,
     has_cs, has_ap, coat, nv, gextra)."""
-    return tuple((f[0], f[1], f[2], f[3], f[4], f[6], f[7], f[8], f[5], f[9])
-                 for f in flags)
+    return tuple(SurfaceFlags(f[0], f[1], f[2], f[3], f[4], f[6], f[7], f[8],
+                              f[5], f[9]) for f in flags)
 
 
 class _Captured(Exception):

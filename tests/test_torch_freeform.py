@@ -172,17 +172,23 @@ def test_flag_word_layout_matches_the_cuda_header():
     for flag in ("PLANE", "REFL", "ABSORB", "CS", "AP", "COAT"):
         assert enums[f"FLAG_{flag}"] == getattr(tgt, f"FLAG_{flag}"), flag
     # a word round-trips through the layout
-    word = tgt._flag_words([(True, False, True, "cheb", 5, True, False,
-                             "simple", 6, None)])[0]
+    word = tgt._flag_words([tgt.SurfaceFlags(True, False, True, "cheb", 5,
+                                             True, False, "simple", 6)])[0]
     assert (word >> tgt.GKIND_SHIFT) & tgt.GKIND_MASK == 4
     assert (word >> tgt.NU_SHIFT) & tgt.NTERM_MASK == 5
     assert (word >> tgt.NV_SHIFT) & tgt.NTERM_MASK == 6
-    word = tgt._flag_words([(False,) * 3 + ("zernike", 9, False, False,
-                                            "none", 0, "noll")])[0]
+    plain = tgt.SurfaceFlags(False, False, False, "conic", 0, False, False,
+                             "none")
+    word = tgt._flag_words([plain._replace(gkind="zernike", nu=9,
+                                           gextra="noll")])[0]
     assert (word >> tgt.BASIS_SHIFT) & tgt.BASIS_MASK == 2
     with pytest.raises(ValueError):             # 36 > MAX_TERMS coefficients
-        tgt._flag_words([(False,) * 3 + ("poly", 6, False, False, "none",
-                                         6, None)])
+        tgt._flag_words([plain._replace(gkind="poly", nu=6, nv=6)])
+    # the variants by the codes the launchers report
+    variants = {m.group(1): int(m.group(2)) for m in
+                re.finditer(r"\bVAR_(\w+) = (\d+)", text)}
+    assert {k.lower(): v for k, v in variants.items()} == {
+        v: i for i, v in enumerate(tgt.VARIANTS)}
 
 
 def test_zernike_table_holds_the_term_structure():
@@ -397,21 +403,57 @@ def test_plain_k2_matches_interpreted_pallas_k2(fresnel_stack):
                                    err_msg=f"{stack} {label}")
 
 
+@pytest.mark.parametrize("kind,label,col", [("toroidal", "dconsts", 24),
+                                             ("cheb", "dconsts", 25),
+                                             ("poly", "dacoef", None)])
+def test_chip_smoke_per_slot_grad_comparison(kind, label, col):
+    """chip_smoke's per-slot K2 check on a freeform singlet (the plain
+    version stands in for the kernel): the plain version with its backward
+    rounded anew passes per slot; with one small slot zeroed (the toroid's
+    rotation radius, the Chebyshev norm_y, the XY polynomial's smallest
+    term) it still passes the tensor-wide check and fails the per-slot
+    one."""
+    from chip_smoke import GRAD_NAMES, GRAD_TOL, compare_grads
+    _, _, gen, consts, acoef, flags = _port_tables(
+        freeform_builders(f"singlet:{kind}")[1](), [0.0, 1.0])
+    n = 2_000
+    px, py = (torch.tensor(a) for a in _pupil(n, seed=8))
+    cot = torch.tensor(np.random.default_rng(3).normal(
+        size=(8, 1, 2, n)).astype(np.float32))
+    ref = gen_trace_bwd_plain(gen, consts, acoef, px, py, cot, flags, True)
+    d = 1.0 + 3 * 2.0 ** -21                     # rounds the backward anew
+    again = [(t.double() / d).to(t.dtype) for t in
+             gen_trace_bwd_plain(gen, consts, acoef, px, py, cot * d, flags,
+                                 True)]
+    compare_grads(again, ref, "re-rounded", per_slot=True)
+    i = GRAD_NAMES.index(label)
+    p = ref[i]
+    if label == "dconsts":
+        slot = (slice(None), 0, col)             # the freeform surface
+    else:
+        mag = torch.where(p != 0, p.abs(), torch.inf)
+        slot = divmod(int(torch.argmin(mag)), p.shape[1])
+    assert 0 < float(p[slot].abs().max()) \
+        < GRAD_TOL[label][1] * float(p.abs().max())
+    again[i][slot] = 0.0
+    compare_grads(again, ref, "zeroed slot")
+    with pytest.raises(RuntimeError, match=f"a {label} slot exceeds"):
+        compare_grads(again, ref, "zeroed slot", per_slot=True)
+
+
 # ---------------------------------------------------------------------------
 # the optimizer
 # ---------------------------------------------------------------------------
 
-def test_freeform_problem_value_and_grad_match_jax():
-    """An OptimizationProblem on the Newton stack (rms_spot_size at Hy 0.7,
-    3 hexapolar rings): the radius of surface 1, two chebyshev_coeff terms,
-    its norm_x, two zernike_coeff terms, the norm radius and the toroid's
-    rotation radius (a path variable) as variables.
-    The port's eager float64 value and gradient against jax.value_and_grad
-    of the JAX package's merit; then the port's kernel route (K1 and K2's
+def _hold_problem(stack, variables):
+    """An OptimizationProblem on ``stack`` (rms_spot_size at Hy 0.7, RINGS
+    hexapolar rings) with ``variables`` ((type, keywords) pairs): the
+    port's eager float64 value and gradient against jax.value_and_grad of
+    the JAX package's merit; then the port's kernel route (K1 and K2's
     plain versions, float32) against the same at its float32 bound
     (rtol 5e-3 with atol 5e-3 x max|g|, tests/test_pallas_grad.py::
     test_merit_path_rides_pallas)."""
-    jb, tb = freeform_builders("newton_stack")
+    jb, tb = freeform_builders(stack)
     problems = []
     for opt, lens, kw in ((jopt, jb(), {}), (topt, tb(), {"device": "cpu"})):
         p = opt.OptimizationProblem(lens, **kw)
@@ -419,16 +461,8 @@ def test_freeform_problem_value_and_grad_match_jax():
                       input_data={"surface_number": -1, "Hx": 0.0,
                                   "Hy": 0.7, "num_rays": RINGS,
                                   "wavelength": 0.55})
-        p.add_variable("radius", surface_number=1)
-        p.add_variable("chebyshev_coeff", surface_number=1,
-                       coeff_index=(0, 1))
-        p.add_variable("chebyshev_coeff", surface_number=1,
-                       coeff_index=(1, 0))
-        p.add_variable("norm_x", surface_number=1)
-        p.add_variable("zernike_coeff", surface_number=2, coeff_number=3)
-        p.add_variable("zernike_coeff", surface_number=2, coeff_number=4)
-        p.add_variable("norm_radius", surface_number=2)
-        p.add_variable("path", path=("surfaces", 3, "geom", "radius_rot"))
+        for vt, extra in variables:
+            p.add_variable(vt, **extra)
         problems.append(p)
     jprob, tprob = problems
     x0 = tprob.x0()
@@ -445,3 +479,37 @@ def test_freeform_problem_value_and_grad_match_jax():
     np.testing.assert_allclose(float(v_k), float(vj), rtol=1e-3)
     np.testing.assert_allclose(g_k.numpy(), gj, rtol=5e-3,
                                atol=5e-3 * np.abs(gj).max())
+
+
+def test_freeform_problem_value_and_grad_match_jax():
+    """The Newton stack: the radius of surface 1, two chebyshev_coeff
+    terms, its norm_x, two zernike_coeff terms, the norm radius and the
+    toroid's rotation radius (a path variable) as variables
+    (``_hold_problem``)."""
+    _hold_problem("newton_stack", [
+        ("radius", dict(surface_number=1)),
+        ("chebyshev_coeff", dict(surface_number=1, coeff_index=(0, 1))),
+        ("chebyshev_coeff", dict(surface_number=1, coeff_index=(1, 0))),
+        ("norm_x", dict(surface_number=1)),
+        ("zernike_coeff", dict(surface_number=2, coeff_number=3)),
+        ("zernike_coeff", dict(surface_number=2, coeff_number=4)),
+        ("norm_radius", dict(surface_number=2)),
+        ("path", dict(path=("surfaces", 3, "geom", "radius_rot")))])
+
+
+def test_more_freeform_leaves_value_and_grad_match_jax():
+    """The leaves stack (``_hold_problem``): the XY polynomial's
+    coefficients (polynomial_coeff), the biconic's radius_x and conic_x,
+    the infinite toroid's y polynomial and the fringe and Noll Zernike
+    terms with the Noll surface's norm radius, the leaves whose gradients
+    the Newton stack leaves out."""
+    _hold_problem("leaves_stack", [
+        ("polynomial_coeff", dict(surface_number=1, coeff_index=(0, 2))),
+        ("polynomial_coeff", dict(surface_number=1, coeff_index=(1, 1))),
+        ("path", dict(path=("surfaces", 2, "geom", "radius_x"))),
+        ("path", dict(path=("surfaces", 2, "geom", "conic_x"))),
+        ("path", dict(path=("surfaces", 3, "geom", "coeffs_poly_y"),
+                      element=(0,))),
+        ("zernike_coeff", dict(surface_number=4, coeff_number=3)),
+        ("zernike_coeff", dict(surface_number=5, coeff_number=4)),
+        ("norm_radius", dict(surface_number=5))])

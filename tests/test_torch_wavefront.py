@@ -449,7 +449,7 @@ def test_plain_k1_split_matches_interpreted_pallas(hubble_split_k2):
     _hold_k1(out, outs, pos_atol=2e-4)
     blocked = _np(out[6]) == 0.0
     assert blocked.any() and not blocked.all()
-    sigma = np.cumprod([1.0] + [-1.0 if f[1] else 1.0 for f in flags])[:-1]
+    sigma = np.cumprod([1.0] + [-1.0 if f.is_refl else 1.0 for f in flags])[:-1]
     np.testing.assert_allclose(float(base),
                                np.sum(sigma * consts[:, 3] * consts[:, 27]),
                                rtol=1e-6)

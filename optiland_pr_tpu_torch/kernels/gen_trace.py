@@ -33,7 +33,8 @@ The module holds
 - ``gen_trace_cuda``: the wrapper of the hand-written CUDA kernel
   ``csrc/gen_trace.cu``, built with nvcc at first use and bound with ctypes;
 - ``build_kernel``/``build_kernels``: the nvcc build of the port's CUDA
-  sources (K1 here, K2, one library per OPD mode, in ``gen_grad.py``);
+  sources (K1 here, K2, one library per OPD mode, in ``gen_grad.py``, K3 in
+  ``trace_conic.py``, K4 in ``huygens.py``);
 - ``gen_trace_conic``, the counterpart of ``pallas_gen_trace_conic``: a CPU
   tensor takes the plain version, a CUDA tensor the kernel, and nothing
   falls back. Inputs that require grad go through ``gen_grad.GenTrace``,
@@ -698,6 +699,147 @@ def _kahan(opd, opd_c, v):
     return tk, (tk - opd) - yk
 
 
+def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
+    """One surface of the plain K1 and K3 (``csrc/gen_trace_common.cuh::
+    surface_step``) in the kernels' operation order: ``flag`` is the
+    surface's ``SurfaceFlags``, ``c(j)`` its constant column j, ``coefs`` its
+    sag coefficients, ``state`` (x, y, z, L, M, N, intensity, opd, opd_c,
+    valid) the rays before it, ``sigma`` the static propagation sign (read
+    by the split mode only); returns the state after it."""
+    (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv,
+     gextra) = flag
+    x, y, z, L, M, N, inten, opd, opd_c, valid = state
+    split = opd_mode == "split"
+    ri, conic, pos_z, n1, n2, alpha = (c(j) for j in range(6))
+    fresnel = gkind in FRESNEL_KINDS
+    newton = gkind != "conic" and not fresnel
+
+    def sag(xx, yy):
+        return _sag_grad(gkind, nu, nv, gextra, c, coefs, xx, yy)
+
+    # localize: v_local = R^T (v - t)
+    if has_cs:
+        r = [c(8 + j) for j in range(9)]
+        dx0, dy0, dz0 = x - c(17), y - c(18), z - c(19)
+        x = r[0] * dx0 + r[3] * dy0 + r[6] * dz0
+        y = r[1] * dx0 + r[4] * dy0 + r[7] * dz0
+        z = r[2] * dx0 + r[5] * dy0 + r[8] * dz0
+        L, M, N = (r[0] * L + r[3] * M + r[6] * N,
+                   r[1] * L + r[4] * M + r[7] * N,
+                   r[2] * L + r[5] * M + r[8] * N)
+    elif split:
+        zp = z
+        z = zp - c(27)
+    else:
+        z = z - pos_z
+
+    if is_plane or fresnel:             # the thin Fresnel base plane
+        t = -z / N
+    else:
+        t0 = -z / N
+        x0 = x + t0 * L
+        y0 = y + t0 * M
+        a = (conic * N * N + 1.0) * ri
+        bh = (L * x0 + M * y0) * ri - N
+        cc = (x0 * x0 + y0 * y0) * ri
+        disc = bh * bh - a * cc
+        ok = disc >= 0
+        sq = _sqrt(torch.where(ok, disc, 1.0))
+        q = -(bh + torch.where(bh >= 0, sq, -sq))   # sign(0) := +1
+        t_far = q / _eps_guard(a)
+        t_near = cc / _eps_guard(q)
+        tq = torch.where(torch.abs(t_near) <= torch.abs(t_far),
+                         t_near, t_far)
+        tq = torch.where(ok, tq, 0.0)
+        t = t0 + tq
+        valid = valid & ok
+    if newton:
+        t = _newton(t, x, y, z, L, M, N, sag)
+    x = x + t * L
+    y = y + t * M
+    z = z + t * N
+    if split:
+        # the path's deviation from the axial gap, sag-scale:
+        # n1 gap (1-|N|)/|N| - n1 zp/|N| + n1 tq, with |N| = sigma N
+        nabs = sigma * N
+        onem = (L * L + M * M) / (1.0 + nabs)
+        dev = (n1 * sigma * c(27)) * (onem / nabs) \
+            - (sigma * n1) * zp / nabs
+        if not is_plane:
+            dev = dev + n1 * tq
+        opd, opd_c = _kahan(opd, opd_c, dev)
+        # z from the exact sag at the landed (x, y)
+        if is_plane:
+            z = torch.zeros_like(z)
+        else:
+            r2 = x * x + y * y
+            arg = 1.0 - (1.0 + conic) * ri * ri * r2
+            z = r2 * ri / (1.0 + _sqrt(torch.where(arg > _EPS, arg,
+                                                        _EPS)))
+    elif opd_mode == "kahan":
+        opd, opd_c = _kahan(opd, opd_c, torch.abs(t * n1))
+    else:
+        opd = opd + torch.abs(t * n1)
+    if absorbing:
+        inten = inten * torch.exp(-alpha * t * 1e3)
+    if has_ap:                          # intensity mask, local frame
+        xa, ya = x - c(22), y - c(23)
+        r2a = xa * xa + ya * ya
+        inten = inten * ((r2a >= c(20)) & (r2a <= c(21))).to(inten.dtype)
+
+    conic_like = gkind in ("conic", "fresnel_zone")
+    if conic_like and is_plane and is_refl:
+        N = -N
+    elif conic_like and is_plane:
+        u = n1 / n2
+        disc_r = 1.0 - u * u * (1.0 - N * N)
+        ok_r = disc_r >= 0
+        root_r = _sqrt(torch.where(ok_r, disc_r, 1.0))
+        valid = valid & ok_r
+        L, M, N = u * L, u * M, torch.sign(N) * root_r
+    else:
+        if conic_like:                  # a zoned lens: the parent's slope
+            r2 = x * x + y * y
+            arg = 1.0 - (1.0 + conic) * ri * ri * r2
+            inv_root = torch.reciprocal(_sqrt(
+                torch.where(arg > _EPS, arg, 1.0)))
+            dfdx = x * ri * inv_root
+            dfdy = y * ri * inv_root
+        elif gkind == "fresnel_designed":
+            dfdx, dfdy = _designed_slope(c, x, y)
+        else:                           # the Newton sag's own slope
+            _, dfdx, dfdy = sag(x, y)
+        inv_n = torch.reciprocal(_sqrt(dfdx * dfdx + dfdy * dfdy
+                                       + 1.0))
+        nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
+        dot = L * nx + M * ny + N * nz
+        if is_refl:
+            two_dot = 2.0 * dot
+            L, M, N = L - two_dot * nx, M - two_dot * ny, N - two_dot * nz
+        else:
+            u = n1 / n2
+            disc_r = 1.0 - u * u * (1.0 - dot * dot)
+            ok_r = disc_r >= 0
+            root_r = _sqrt(torch.where(ok_r, disc_r, 1.0))
+            w = torch.sign(dot) * root_r - u * dot
+            L, M, N = u * L + nx * w, u * M + ny * w, u * N + nz * w
+            valid = valid & ok_r
+    if coat == "simple":
+        inten = inten * c(6)
+
+    # globalize: v = R v_local + t
+    if has_cs:
+        x, y, z = (r[0] * x + r[1] * y + r[2] * z + c(17),
+                   r[3] * x + r[4] * y + r[5] * z + c(18),
+                   r[6] * x + r[7] * y + r[8] * z + c(19))
+        L, M, N = (r[0] * L + r[1] * M + r[2] * N,
+                   r[3] * L + r[4] * M + r[5] * N,
+                   r[6] * L + r[7] * M + r[8] * N)
+    elif not split:
+        z = z + pos_z
+    return x, y, z, L, M, N, inten, opd, opd_c, valid
+
+
 def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
                     opd_mode: str = "plain"):
     """Plain PyTorch K1 on the packed tables: every elementwise operation of
@@ -741,140 +883,18 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
         z = torch.zeros_like(x)
     sigma = 1.0                 # the static propagation sign
 
-    for k, (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat,
-            nv, gextra) in enumerate(flags):
-        def c(j):                           # per-wavelength constant, [W, 1, 1]
+    state = (x, y, z, L, M, N, inten, opd, opd_c, valid)
+    for k, flag in enumerate(flags):
+        flag = SurfaceFlags(*flag)
+
+        def c(j, k=k):                      # per-wavelength constant, [W, 1, 1]
             return consts[:, k, j].reshape(W, 1, 1)
-        ri, conic, pos_z, n1, n2, alpha = (c(j) for j in range(6))
-        coefs = [acoef[k, i] for i in range(n_coefs(gkind, nu, nv))]
-        fresnel = gkind in FRESNEL_KINDS
-        newton = gkind != "conic" and not fresnel
-
-        def sag(xx, yy):
-            return _sag_grad(gkind, nu, nv, gextra, c, coefs, xx, yy)
-
-        # localize: v_local = R^T (v - t)
-        if has_cs:
-            r = [c(8 + j) for j in range(9)]
-            dx0, dy0, dz0 = x - c(17), y - c(18), z - c(19)
-            x = r[0] * dx0 + r[3] * dy0 + r[6] * dz0
-            y = r[1] * dx0 + r[4] * dy0 + r[7] * dz0
-            z = r[2] * dx0 + r[5] * dy0 + r[8] * dz0
-            L, M, N = (r[0] * L + r[3] * M + r[6] * N,
-                       r[1] * L + r[4] * M + r[7] * N,
-                       r[2] * L + r[5] * M + r[8] * N)
-        elif split:
-            zp = z
-            z = zp - c(27)
-        else:
-            z = z - pos_z
-
-        if is_plane or fresnel:             # the thin Fresnel base plane
-            t = -z / N
-        else:
-            t0 = -z / N
-            x0 = x + t0 * L
-            y0 = y + t0 * M
-            a = (conic * N * N + 1.0) * ri
-            bh = (L * x0 + M * y0) * ri - N
-            cc = (x0 * x0 + y0 * y0) * ri
-            disc = bh * bh - a * cc
-            ok = disc >= 0
-            sq = _sqrt(torch.where(ok, disc, 1.0))
-            q = -(bh + torch.where(bh >= 0, sq, -sq))   # sign(0) := +1
-            t_far = q / _eps_guard(a)
-            t_near = cc / _eps_guard(q)
-            tq = torch.where(torch.abs(t_near) <= torch.abs(t_far),
-                             t_near, t_far)
-            tq = torch.where(ok, tq, 0.0)
-            t = t0 + tq
-            valid = valid & ok
-        if newton:
-            t = _newton(t, x, y, z, L, M, N, sag)
-        x = x + t * L
-        y = y + t * M
-        z = z + t * N
-        if split:
-            # the path's deviation from the axial gap, sag-scale:
-            # n1 gap (1-|N|)/|N| - n1 zp/|N| + n1 tq, with |N| = sigma N
-            nabs = sigma * N
-            onem = (L * L + M * M) / (1.0 + nabs)
-            dev = (n1 * sigma * c(27)) * (onem / nabs) \
-                - (sigma * n1) * zp / nabs
-            if not is_plane:
-                dev = dev + n1 * tq
-            opd, opd_c = _kahan(opd, opd_c, dev)
-            # z from the exact sag at the landed (x, y)
-            if is_plane:
-                z = torch.zeros_like(z)
-            else:
-                r2 = x * x + y * y
-                arg = 1.0 - (1.0 + conic) * ri * ri * r2
-                z = r2 * ri / (1.0 + _sqrt(torch.where(arg > _EPS, arg,
-                                                            _EPS)))
-        elif opd_mode == "kahan":
-            opd, opd_c = _kahan(opd, opd_c, torch.abs(t * n1))
-        else:
-            opd = opd + torch.abs(t * n1)
-        if absorbing:
-            inten = inten * torch.exp(-alpha * t * 1e3)
-        if has_ap:                          # intensity mask, local frame
-            xa, ya = x - c(22), y - c(23)
-            r2a = xa * xa + ya * ya
-            inten = inten * ((r2a >= c(20)) & (r2a <= c(21))).to(inten.dtype)
-
-        conic_like = gkind in ("conic", "fresnel_zone")
-        if conic_like and is_plane and is_refl:
-            N = -N
-        elif conic_like and is_plane:
-            u = n1 / n2
-            disc_r = 1.0 - u * u * (1.0 - N * N)
-            ok_r = disc_r >= 0
-            root_r = _sqrt(torch.where(ok_r, disc_r, 1.0))
-            valid = valid & ok_r
-            L, M, N = u * L, u * M, torch.sign(N) * root_r
-        else:
-            if conic_like:                  # a zoned lens: the parent's slope
-                r2 = x * x + y * y
-                arg = 1.0 - (1.0 + conic) * ri * ri * r2
-                inv_root = torch.reciprocal(_sqrt(
-                    torch.where(arg > _EPS, arg, 1.0)))
-                dfdx = x * ri * inv_root
-                dfdy = y * ri * inv_root
-            elif gkind == "fresnel_designed":
-                dfdx, dfdy = _designed_slope(c, x, y)
-            else:                           # the Newton sag's own slope
-                _, dfdx, dfdy = sag(x, y)
-            inv_n = torch.reciprocal(_sqrt(dfdx * dfdx + dfdy * dfdy
-                                           + 1.0))
-            nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
-            dot = L * nx + M * ny + N * nz
-            if is_refl:
-                two_dot = 2.0 * dot
-                L, M, N = L - two_dot * nx, M - two_dot * ny, N - two_dot * nz
-            else:
-                u = n1 / n2
-                disc_r = 1.0 - u * u * (1.0 - dot * dot)
-                ok_r = disc_r >= 0
-                root_r = _sqrt(torch.where(ok_r, disc_r, 1.0))
-                w = torch.sign(dot) * root_r - u * dot
-                L, M, N = u * L + nx * w, u * M + ny * w, u * N + nz * w
-                valid = valid & ok_r
-        if coat == "simple":
-            inten = inten * c(6)
-
-        # globalize: v = R v_local + t
-        if has_cs:
-            x, y, z = (r[0] * x + r[1] * y + r[2] * z + c(17),
-                       r[3] * x + r[4] * y + r[5] * z + c(18),
-                       r[6] * x + r[7] * y + r[8] * z + c(19))
-            L, M, N = (r[0] * L + r[1] * M + r[2] * N,
-                       r[3] * L + r[4] * M + r[5] * N,
-                       r[6] * L + r[7] * M + r[8] * N)
-        elif not split:
-            z = z + pos_z
-        if is_refl:
+        coefs = [acoef[k, i] for i in range(n_coefs(flag.gkind, flag.nu,
+                                                    flag.nv))]
+        state = _surface_plain(flag, c, coefs, state, sigma, opd_mode)
+        if flag.is_refl:
             sigma = -sigma
+    x, y, z, L, M, N, inten, opd, opd_c, valid = state
 
     if final_prop:
         t_img = g(6)
@@ -913,6 +933,17 @@ _SIGNATURES = {
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int)], ctypes.c_int)],
 }
+# K3 (csrc/trace.cu, kernels/trace_conic.py) and K4 (csrc/huygens.cu,
+# kernels/huygens.py)
+_SIGNATURES["trace"] = [
+    ("trace_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+     + [ctypes.c_longlong, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+     ctypes.c_int)]
+_SIGNATURES["huygens"] = [
+    ("huygens_launch", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p,
+                        ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
 # K2: one library per OPD mode (csrc/gen_grad.cu, gen_grad_kahan.cu,
 # gen_grad_split.cu), one signature
 GRAD_LIBS = {"plain": "gen_grad", "kahan": "gen_grad_kahan",
@@ -931,7 +962,7 @@ BUILD_LOG: dict = {}
 
 
 def _sources_key() -> str:
-    """Hash of every file under csrc/ (a header change rebuilds both)."""
+    """Hash of every file under csrc/ (a header change rebuilds them all)."""
     h = hashlib.sha256()
     for path in sorted(_CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh"):

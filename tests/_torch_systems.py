@@ -87,6 +87,24 @@ def _singlet(optic):
     return lens
 
 
+def _tilted_image_singlet(optic):
+    """The wavefront singlet with a curved image surface (R -200 mm), tilted
+    by 0.02 rad about x and decentered by 0.05 mm in y: a Huygens image grid
+    goes through the image surface's sag and pose."""
+    lens = optic(name="tilted image singlet")
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=50.0, thickness=6.0, material="N-BK7",
+                     is_stop=True)
+    lens.add_surface(index=2, radius=-300.0, thickness=85.0)
+    lens.add_surface(index=3, radius=-200.0, rx=0.02, dy=0.05)
+    lens.set_aperture(aperture_type="EPD", value=16.0)
+    lens.set_field_type(field_type="angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=5.0)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
 def _newton_stack(optic):
     """Three Newton sags in one stack, on the faces of two thin lenses: a
     3 x 3 Chebyshev grid, six standard Zernike terms and a toroid, then a
@@ -219,6 +237,9 @@ def builders(name):
         return jax_combined, torch_combined
     if name == "Singlet":
         return (lambda: _singlet(JOptic)), (lambda: _singlet(TOptic))
+    if name == "TiltedImageSinglet":
+        return ((lambda: _tilted_image_singlet(JOptic)),
+                (lambda: _tilted_image_singlet(TOptic)))
     if name in ("TiltedSinglet", "CoatedSinglet", "OddAsphereSinglet"):
         return _widened(name), getattr(tsamples, name)
     return getattr(jsamples, name), getattr(tsamples, name)

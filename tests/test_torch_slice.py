@@ -101,9 +101,9 @@ def test_other_conic_samples_match_jax(name):
 
 def test_port_never_imports_jax():
     """Build, trace and spot the Cooke triplet, the Hubble telescope and the
-    aspheric singlet (the asphere, coating and aperture modules) with the
-    port in a fresh interpreter (this test process has JAX loaded by
-    conftest.py)."""
+    aspheric singlet (the asphere, coating and aperture modules), import K3
+    and K4 and run a small Huygens PSF with the port in a fresh interpreter
+    (this test process has JAX loaded by conftest.py)."""
     code = (
         "import sys\n"
         "from optiland_pr_tpu_torch.samples import CookeTriplet\n"
@@ -127,6 +127,13 @@ def test_port_never_imports_jax():
         "    for lens in (HubbleTelescope(), AsphericSinglet()):\n"
         "        s = spot_diagram(*lens.build(device='cpu'), num_rays=3)\n"
         "        assert s.rms_spot_radius().isfinite().all()\n"
+        "import optiland_pr_tpu_torch.kernels.huygens\n"
+        "import optiland_pr_tpu_torch.kernels.trace_conic\n"
+        "import optiland_pr_tpu_torch.analysis.psf_mtf_extra\n"
+        "from optiland_pr_tpu_torch.analysis import HuygensMTF, HuygensPSF\n"
+        "h = HuygensPSF(CookeTriplet(), (0.0, 1.0), num_rays=8,\n"
+        "               image_size=4, device='cpu')\n"
+        "assert h.psf.isfinite().all()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('optiland_pr_tpu.') "
         "or m == 'optiland_pr_tpu')\n"

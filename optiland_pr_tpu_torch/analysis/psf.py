@@ -176,18 +176,15 @@ def _image_to_global(model, params, x, y, z):
 
 
 def _on_sphere(data):
-    """The pupil samples of the wavefront ``data``, which lie on its
-    reference sphere (center ``data.center``, radius ``data.radius``).
-    Float64 samples are returned as they are. Samples of another dtype (the
-    float32 kernel route) carry that dtype's rounding in their distance from
-    the center, R eps (4e-6 mm at R = 60 mm, 5e-4 mm at 6 m), which at k ~
-    1e4 / mm turns their phase by up to radians; they are put back on the
-    sphere along their direction from the center, in float64."""
-    p = (data.pupil_x, data.pupil_y, data.pupil_z)
-    if data.pupil_x.dtype == torch.float64:
-        return p
+    """The pupil samples of the wavefront ``data``, put back on its reference
+    sphere (center ``data.center``, radius ``data.radius``) along their
+    direction from the center, in float64. Float32 samples (the kernel
+    route) carry R eps of rounding in their distance from the center (4e-6
+    mm at R = 60 mm, 5e-4 mm at 6 m), which at k ~ 1e4 / mm turns their
+    phase by up to radians; float64 samples move by ~R eps, 1e-8 rad."""
     f64 = torch.float64
-    u = [v.to(f64) - torch.as_tensor(c).to(f64) for v, c in zip(p, data.center)]
+    u = [v.to(f64) - torch.as_tensor(c).to(f64) for v, c in
+         zip((data.pupil_x, data.pupil_y, data.pupil_z), data.center)]
     scale = torch.as_tensor(data.radius).to(f64) \
         / torch.sqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2])
     return tuple(torch.as_tensor(c).to(f64) + v * scale

@@ -116,21 +116,20 @@ trace_cuda.launches = 0
 trace_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
-def trace_conic(model: OpticModel, params, rays: Rays, wavelength,
-                device=None) -> Rays:
+def trace_conic(model: OpticModel, params, rays: Rays, wavelength) -> Rays:
     """Trace the bundle ``rays`` through the surfaces of the system at the
     scalar ``wavelength``; the counterpart of ``pallas_trace_conic``. Returns
     the rays on the image surface (before the image thickness), float32,
     with NaN in the state of lost rays and the input's wavelength.
 
-    K3 runs on ``device``, by default the device of ``rays.x``: the plain
-    version on the CPU, the CUDA kernel on the card."""
+    K3 runs on the device of ``rays.x``: the plain version on the CPU, the
+    CUDA kernel on the card."""
     if not supports_model(model):
         raise ValueError("the system has a surface K3 does not cover "
                          "(gen_trace.supports_model)")
     if torch.as_tensor(wavelength).ndim != 0:
         raise ValueError("K3 traces one wavelength per call")
-    dev = rays.x.device if device is None else torch.device(device)
+    dev = rays.x.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"K3 has no version for device {dev}")
     shape = rays.x.shape

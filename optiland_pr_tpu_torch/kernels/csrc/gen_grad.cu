@@ -1,12 +1,12 @@
-// K2, sub-slices (a), (b), (c) but the Forbes sags, and the OPD modes of
-// (g): the vector-Jacobian product of K1 (gen_trace.cu) by per-ray
-// recompute and a per-surface reverse sweep, one ray per thread.
+// K2, sub-slices (a), (b), (c), (d) and the OPD modes of (g): the
+// vector-Jacobian product of K1 (gen_trace.cu) by per-ray recompute and a
+// per-surface reverse sweep, one ray per thread.
 //
 // One library per OPD mode: this file builds the plain mode's, and
 // gen_grad_kahan.cu and gen_grad_split.cu include it with GRAD_MODE set to
 // OPD_KAHAN and OPD_SPLIT. Each library holds its mode's template instances
 // (4 stack depths x the variants: narrow, WIDE and, in the plain and Kahan
-// modes, FREEFORM), and the three build in parallel.
+// modes, FREEFORM and FORBES), and the three build in parallel.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_grad.py::
 // _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic,
@@ -64,7 +64,11 @@
 //      save that memory at O(S^2) arithmetic, and the kernel is bound by
 //      arithmetic (PERF.md). It is a template on K1's variant too: the
 //      narrow one for conic/plane systems, WIDE for (b) and the even/odd
-//      aspheres, FREEFORM for the other sags of (c).
+//      aspheres, FREEFORM for the other sags of (c) but the Forbes sags,
+//      FORBES for a system with a Forbes sag (the Clenshaw adjoints would
+//      cost the other freeform sags their registers: 812 B spilled against
+//      220 B, PERF.md). The launch's telecentric aim and apodization are a
+//      runtime branch on gen columns 10-11 in every variant.
 //      The cotangents of x, y, z, L, M, N, opd are zeroed for lost rays (the
 //      transpose of _nanify8: a NaN cotangent from an unmasked consumer
 //      becomes 0); the intensity cotangent is not masked. The reverse sweep
@@ -581,6 +585,318 @@ __device__ __forceinline__ void designed_slope_adjoint(
     dy += 2.0f * y * dr2;
 }
 
+// ---- the Forbes sags' adjoints ---------------------------------------------
+// A Clenshaw sum is linear in its coefficients: S(usq) = sum_j d_j v_j(usq)
+// where the basis values v_j follow the transpose (forward) recurrence
+// v_j = w_j + alpha_{j-1} v_{j-1} - C_{j-2} v_{j-2}, alpha_j = a_j + b_j usq,
+// with the readout weights w (Qbfs: w_0 = w_1 = 2, alpha = 2 - 4 usq, C = 1;
+// a Q2D group: w_0 = 1/2, w_3 = -2/5 for m = 1 and more than 3 terms). So
+// the adjoint needs no stored alphas: one forward pass gives v_j, v_j' and
+// v_j'' (by usq), adds gs v_j + gd v_j' to each coefficient's cotangent for
+// the cotangents (gs, gd) of (S, S'), and returns S' and S''.
+__device__ __forceinline__ void clenshaw_adjoint(
+        const float* d, int ln, bool qbfs, const float* ta, const float* tb,
+        const float* tc, int m, float usq, float gs, float gd, float* da,
+        float& S1, float& S2) {
+    float v1 = 0.0f, v2 = 0.0f, p1 = 0.0f, p2 = 0.0f, q1 = 0.0f, q2 = 0.0f;
+    S1 = S2 = 0.0f;
+    for (int j = 0; j < ln; ++j) {
+        float v = qbfs ? (j < 2 ? 2.0f : 0.0f)
+                       : (j == 0 ? 0.5f : (j == 3 && m == 1 && ln > 3 ? -0.4f
+                                                                      : 0.0f));
+        float p = 0.0f, q = 0.0f;
+        if (j >= 1) {
+            const float al = qbfs ? 2.0f - 4.0f * usq : ta[j - 1] + tb[j - 1] * usq;
+            const float alp = qbfs ? -4.0f : tb[j - 1];
+            v += al * v1;
+            p += alp * v1 + al * p1;
+            q += 2.0f * alp * p1 + al * q1;
+            if (j >= 2) {
+                const float cc = qbfs ? 1.0f : tc[j - 2];
+                v -= cc * v2;
+                p -= cc * p2;
+                q -= cc * q2;
+            }
+        }
+        da[j] += gs * v + gd * p;
+        S1 += d[j] * p;
+        S2 += d[j] * q;
+        v2 = v1;
+        v1 = v;
+        p2 = p1;
+        p1 = p;
+        q2 = q1;
+        q1 = q;
+    }
+}
+
+// forbes_sigma: factor = nf / df, deriv = c2 rho / (nf df^3), nf = sqrt(num >
+// 0 ? num : 1e-12), df = sqrt(den > 0 ? den : 1e-12), num = 1 - k c2 r2,
+// den = 1 - (k + 1) c2 r2, c2 = ri^2
+__device__ __forceinline__ void forbes_sigma_adjoint(
+        float ri, float k, float r2, float rho, float dfac, float dder,
+        float& dri, float& dk, float& dr2, float& drho) {
+    const float c2 = mul(ri, ri);
+    const float num = sub(1.0f, mul(mul(k, c2), r2));
+    const float den = sub(1.0f, mul(mul(add(k, 1.0f), c2), r2));
+    const bool okn = num > 0.0f, okd = den > 0.0f;
+    const float nf = sqt(okn ? num : 1e-12f), df = sqt(okd ? den : 1e-12f);
+    const float qd = nf * df * df * df;
+    const float deriv = c2 * rho / qd;
+    const float dnf = dfac / df - dder * deriv / nf;
+    const float ddf = -dfac * nf / (df * df) - 3.0f * dder * deriv / df;
+    float dc2 = dder * rho / qd;
+    drho += dder * c2 / qd;
+    const float dnum = okn ? dnf / (2.0f * nf) : 0.0f;
+    const float dden = okd ? ddf / (2.0f * df) : 0.0f;
+    dk -= (dnum + dden) * c2 * r2;
+    dc2 -= dnum * k * r2 + dden * (k + 1.0f) * r2;
+    dr2 -= dnum * k * c2 + dden * (k + 1.0f) * c2;
+    dri += 2.0f * ri * dc2;
+}
+
+// The radial part shared by both Forbes sags: dS = dpref factor P + B dfac P
+// + B factor dP_drho with dpref = (2u - 4u usq) / nr, B = usq - usq^2 and
+// dP_drho = 2 P' u / nr, for the cotangent dA of dS: adds to the cotangents
+// of factor, dfac, P, P', u, usq and nr.
+__device__ __forceinline__ void forbes_radial_adjoint(
+        float u, float usq, float nr, float factor, float dfac, float P,
+        float Pd, float dA, float& dfactor, float& ddfac, float& dP,
+        float& dPd, float& du, float& dusq, float& dnr) {
+    const float B = usq - usq * usq;
+    const float dpref = (2.0f * u - 4.0f * u * usq) / nr;
+    const float dpd = 2.0f * Pd * u / nr;
+    const float d_dpref = dA * factor * P;
+    dfactor += dA * (dpref * P + B * dpd);
+    dP += dA * (dpref * factor + B * dfac);
+    const float dB = dA * (dfac * P + factor * dpd);
+    ddfac += dA * B * P;
+    const float d_dpd = dA * B * factor;
+    dPd += d_dpd * 2.0f * u / nr;
+    du += d_dpd * 2.0f * Pd / nr + d_dpref * (2.0f - 4.0f * usq) / nr;
+    dnr -= d_dpd * dpd / nr + d_dpref * dpref / nr;
+    dusq += dB * (1.0f - 2.0f * usq) - d_dpref * 4.0f * u / nr;
+}
+
+// qbfs_sag_grad's adjoint
+__device__ __forceinline__ void qbfs_sag_adjoint(
+        const float* c, const float* ac, int nu, float xx, float yy, float ds,
+        float dgx, float dgy, float& dxx, float& dyy, float& dri,
+        float& dconic, float& dnr, float* da) {
+    conic_base_adjoint(c[0], c[1], xx, yy, ds, dgx, dgy, dxx, dyy, dri, dconic);
+    if (nu == 0) return;
+    const float nr = c[24];
+    const float r2 = add(mul(xx, xx), mul(yy, yy));
+    const float rho = sqt(add(r2, 1e-12f));
+    const float u = dvd(rho, nr);
+    const float usq_s = dvd(r2, mul(nr, nr));
+    const float usq = mul(u, u);
+    float factor, dfac, poly_s, dps, poly_g, dpoly;
+    forbes_sigma(c[0], c[1], r2, rho, factor, dfac);
+    qbfs_sum(ac, nu, usq_s, poly_s, dps);
+    qbfs_sum(ac, nu, usq, poly_g, dpoly);
+    const bool in_g = !(u >= 1.0f);
+    const float B = usq - usq * usq;
+    const float dS = in_g ? (2.0f * u - 4.0f * u * usq) / nr * factor * poly_g
+                            + B * dfac * poly_g + B * factor * 2.0f * dpoly * u / nr
+                          : 0.0f;
+    const float inv_rho = 1.0f / rho;
+    const float gr = dgx * xx + dgy * yy;
+    dxx += dgx * dS * inv_rho;
+    dyy += dgy * dS * inv_rho;
+    float drho = -(gr * dS) * inv_rho * inv_rho;
+    float dfactor = 0.0f, ddfac = 0.0f, dpg = 0.0f, ddp = 0.0f, du = 0.0f,
+          dusq = 0.0f, dr2 = 0.0f;
+    if (in_g)
+        forbes_radial_adjoint(u, usq, nr, factor, dfac, poly_g, dpoly,
+                              gr * inv_rho, dfactor, ddfac, dpg, ddp, du, dusq,
+                              dnr);
+    float S1, S2;
+    clenshaw_adjoint(ac, nu, true, nullptr, nullptr, nullptr, 0, usq, dpg, ddp,
+                     da, S1, S2);
+    dusq += dpg * S1 + ddp * S2;
+    if (!(usq_s > 1.0f)) {                     // the sag's departure
+        const float w = usq_s * (1.0f - usq_s);
+        float dus = ds * (1.0f - 2.0f * usq_s) * factor * poly_s;
+        dfactor += ds * w * poly_s;
+        const float dps_c = ds * w * factor;
+        clenshaw_adjoint(ac, nu, true, nullptr, nullptr, nullptr, 0, usq_s,
+                         dps_c, 0.0f, da, S1, S2);
+        dus += dps_c * S1;
+        dr2 += dus / (nr * nr);
+        dnr -= 2.0f * dus * usq_s / nr;
+    }
+    du += 2.0f * u * dusq;
+    drho += du / nr;
+    dnr -= du * u / nr;
+    forbes_sigma_adjoint(c[0], c[1], r2, rho, dfactor, ddfac, dri, dconic, dr2,
+                         drho);
+    dr2 += drho / (2.0f * rho);
+    dxx += 2.0f * xx * dr2;
+    dyy += 2.0f * yy * dr2;
+}
+
+// q2d_sag_grad's adjoint: the forward's sums are recomputed, then walked
+// back group by group; cos m t = T_m(c) and sin m t = s U_{m-1}(c) give the
+// angle's cotangents through (c, s) = (x, y) / r
+__device__ __forceinline__ void q2d_sag_adjoint(
+        const float* c, const float* ac, int nu, float xx, float yy, float ds,
+        float dgx, float dgy, float& dxx, float& dyy, float& dri,
+        float& dconic, float& dnr, float* da) {
+    conic_base_adjoint(c[0], c[1], xx, yy, ds, dgx, dgy, dxx, dyy, dri, dconic);
+    const float* code = ac + nu;
+    const float* ta = ac + 2 * nu;
+    const float* tb = ac + 3 * nu;
+    const float* tc = ac + 4 * nu;
+    const float nr = c[24];
+    const float r2 = add(mul(xx, xx), mul(yy, yy));
+    const float rho = sqt(add(r2, 1e-12f));
+    const float u = dvd(rho, nr);
+    const float usq = mul(u, u);
+    const bool ok = r2 > 0.0f;
+    const float rho2 = sqt(ok ? r2 : 1.0f);
+    const float cost = ok ? xx / rho2 : 1.0f;
+    const float sint = ok ? yy / rho2 : 0.0f;
+    int n_m0 = 0;
+    while (n_m0 < nu && code[n_m0] == 0.0f) ++n_m0;
+    const int max_m = nu > n_m0 ? (int)code[nu - 1] / 2 : 0;
+    float s_m0 = 0.0f, ds_dusq = 0.0f;
+    if (n_m0) qbfs_sum(ac, n_m0, usq, s_m0, ds_dusq);
+    // the forward's sums over m, by the same recurrences
+    float poly = 0.0f, dr = 0.0f, dt = 0.0f;
+    {
+        float c0 = 1.0f, c1 = cost, s0 = 0.0f, s1 = sint, upm1 = 1.0f, upm = u;
+        int off = n_m0;
+        for (int m = 1; m <= max_m; ++m) {
+            if (m >= 2) {
+                const float cn = 2.0f * cost * c1 - c0, sn = 2.0f * cost * s1 - s0;
+                c0 = c1;
+                c1 = cn;
+                s0 = s1;
+                s1 = sn;
+                upm1 = upm;
+                upm *= u;
+            }
+            float sv[2] = {0.0f, 0.0f}, spv[2] = {0.0f, 0.0f};
+            for (int b = 0; b < 2; ++b) {
+                int ln = 0;
+                while (off + ln < nu && (int)code[off + ln] == 2 * m + b) ++ln;
+                if (!ln) continue;
+                q2d_group(ac + off, ta + off, tb + off, tc + off, ln, m, usq,
+                          sv[b], spv[b]);
+                off += ln;
+            }
+            const float fm = (float)m;
+            poly += upm * (c1 * sv[0] + s1 * sv[1]);
+            dr += upm1 * (c1 * (2.0f * usq * spv[0] + fm * sv[0])
+                          + s1 * (2.0f * usq * spv[1] + fm * sv[1]));
+            dt += fm * upm * (-sv[0] * s1 + sv[1] * c1);
+        }
+    }
+    float factor, dfac;
+    forbes_sigma(c[0], c[1], r2, rho, factor, dfac);
+    const bool in_g = !(u >= 1.0f);
+    const float B = usq - usq * usq;
+    const float dpref = (2.0f * u - 4.0f * u * usq) / nr;
+    const float dS0 = dpref * factor * s_m0 + B * dfac * s_m0
+                      + B * factor * 2.0f * ds_dusq * u / nr;
+    const float dSr = in_g ? dS0 + dfac * poly + factor * dr / nr : 0.0f;
+    const float dSt = in_g ? factor * dt : 0.0f;
+    const float ir = 1.0f / rho;
+    const float gr = dgx * xx + dgy * yy, gt = dgy * xx - dgx * yy;
+    dxx += dgx * dSr * ir + dgy * dSt * ir * ir;
+    dyy += dgy * dSr * ir - dgx * dSt * ir * ir;
+    float drho = -(dSr * gr + 2.0f * ir * dSt * gt) * ir * ir;
+    const float dA = in_g ? gr * ir : 0.0f;
+    const float dT = in_g ? gt * ir * ir : 0.0f;
+    float dfactor = dT * dt, ddfac = dA * poly, dpoly = dA * dfac;
+    const float ddt = dT * factor, ddr = dA * factor / nr;
+    dfactor += dA * dr / nr;
+    dnr -= dA * factor * dr / (nr * nr);
+    float dsm0 = 0.0f, ddsd = 0.0f, du = 0.0f, dusq = 0.0f, dr2 = 0.0f;
+    forbes_radial_adjoint(u, usq, nr, factor, dfac, s_m0, ds_dusq, dA, dfactor,
+                          ddfac, dsm0, ddsd, du, dusq, dnr);
+    if (!(u > 1.0f)) {                         // the sag's departure
+        dusq += ds * (1.0f - 2.0f * usq) * factor * s_m0;
+        dfactor += ds * (usq * (1.0f - usq) * s_m0 + poly);
+        dsm0 += ds * usq * (1.0f - usq) * factor;
+        dpoly += ds * factor;
+    }
+    float S1, S2;
+    if (n_m0) {
+        clenshaw_adjoint(ac, n_m0, true, nullptr, nullptr, nullptr, 0, usq,
+                         dsm0, ddsd, da, S1, S2);
+        dusq += dsm0 * S1 + ddsd * S2;
+    }
+    // the groups, with U_{m-1}(c), U_{m-2}(c) and their derivatives
+    float dcost = 0.0f, dsint = 0.0f;
+    float U1 = 1.0f, U2 = 0.0f, dU1 = 0.0f, dU2 = 0.0f;
+    float upm2 = 0.0f, upm1 = 1.0f, upm = u;
+    int off = n_m0;
+    for (int m = 1; m <= max_m; ++m) {
+        if (m >= 2) {
+            const float Un = 2.0f * cost * U1 - U2;
+            const float dUn = 2.0f * U1 + 2.0f * cost * dU1 - dU2;
+            U2 = U1;
+            U1 = Un;
+            dU2 = dU1;
+            dU1 = dUn;
+            upm2 = upm1;
+            upm1 = upm;
+            upm *= u;
+        }
+        const float cs = cost * U1 - U2, sn = sint * U1, fm = (float)m;
+        int offs[2] = {off, off}, lns[2] = {0, 0};
+        float sv[2] = {0.0f, 0.0f}, spv[2] = {0.0f, 0.0f};
+        for (int b = 0; b < 2; ++b) {
+            offs[b] = off;
+            while (off + lns[b] < nu && (int)code[off + lns[b]] == 2 * m + b)
+                ++lns[b];
+            if (!lns[b]) continue;
+            q2d_group(ac + off, ta + off, tb + off, tc + off, lns[b], m, usq,
+                      sv[b], spv[b]);
+            off += lns[b];
+        }
+        const float ea = 2.0f * usq * spv[0] + fm * sv[0];
+        const float eb = 2.0f * usq * spv[1] + fm * sv[1];
+        const float Ua = cs * sv[0] + sn * sv[1];
+        const float DR = cs * ea + sn * eb;
+        const float DT = -sv[0] * sn + sv[1] * cs;
+        du += (dpoly * Ua + ddt * fm * DT) * fm * upm1
+              + (m >= 2 ? ddr * DR * (fm - 1.0f) * upm2 : 0.0f);
+        const float dUa = dpoly * upm, dDR = ddr * upm1, dDT = ddt * fm * upm;
+        const float dcs = dUa * sv[0] + dDR * ea + dDT * sv[1];
+        const float dsn = dUa * sv[1] + dDR * eb - dDT * sv[0];
+        const float dsv[2] = {dUa * cs + dDR * cs * fm - dDT * sn,
+                              dUa * sn + dDR * sn * fm + dDT * cs};
+        const float dspv[2] = {dDR * cs * 2.0f * usq, dDR * sn * 2.0f * usq};
+        dusq += dDR * (2.0f * cs * spv[0] + 2.0f * sn * spv[1]);
+        for (int b = 0; b < 2; ++b) {
+            if (!lns[b]) continue;
+            const int o = offs[b];
+            clenshaw_adjoint(ac + o, lns[b], false, ta + o, tb + o, tc + o, m,
+                             usq, dsv[b], dspv[b], da + o, S1, S2);
+            dusq += dsv[b] * S1 + dspv[b] * S2;
+        }
+        dcost += dcs * fm * U1 + dsn * sint * dU1;
+        dsint += dsn * U1;
+    }
+    if (ok) {                                  // (c, s) = (x, y) / r
+        const float irs = 1.0f / rho2;
+        const float drs = -(dcost * cost + dsint * sint) * irs;
+        dxx += dcost * irs + drs * xx * irs;
+        dyy += dsint * irs + drs * yy * irs;
+    }
+    du += 2.0f * u * dusq;
+    drho += du / nr;
+    dnr -= du * u / nr;
+    forbes_sigma_adjoint(c[0], c[1], r2, rho, dfactor, ddfac, dri, dconic, dr2,
+                         drho);
+    dr2 += drho / (2.0f * rho);
+    dxx += 2.0f * xx * dr2;
+    dyy += 2.0f * yy * dr2;
+}
+
 // The Newton sags' adjoint dispatch (sag_grad's): d24, d25 take the
 // cotangents of columns 24 and 25.
 template <int VAR>
@@ -590,7 +906,7 @@ __device__ __forceinline__ void sag_adjoint(
         float& dyy, float& dri, float& dconic, float& d24, float& d25,
         float* da) {
     const int nu = nu_of(fl);
-    if (VAR != VAR_FREEFORM || gk == GK_EVEN || gk == GK_ODD)
+    if (VAR < VAR_FREEFORM || gk == GK_EVEN || gk == GK_ODD)
         asphere_sag_adjoint(c[0], c[1], ac, nu, gk == GK_ODD, xx, yy, ds, dgx,
                             dgy, dxx, dyy, dri, dconic, da);
     else if (gk == GK_POLY)
@@ -605,10 +921,58 @@ __device__ __forceinline__ void sag_adjoint(
     } else if (gk == GK_TORUS || gk == GK_TORUS_INF)
         toroidal_sag_adjoint(c, ac, nu, gk == GK_TORUS_INF, xx, yy, ds, dgx,
                              dgy, dxx, dyy, dri, dconic, d24, da);
+    else if (VAR == VAR_FORBES && gk == GK_QBFS)
+        qbfs_sag_adjoint(c, ac, nu, xx, yy, ds, dgx, dgy, dxx, dyy, dri,
+                         dconic, d24, da);
+    else if (VAR == VAR_FORBES && gk == GK_Q2D)
+        q2d_sag_adjoint(c, ac, nu, xx, yy, ds, dgx, dgy, dxx, dyy, dri, dconic,
+                        d24, da);
     else
         zernike_sag_adjoint(c, ac, nu,
                             ztab + (size_t)basis_of(fl) * MAX_TERMS * ZT_W, xx,
                             yy, ds, dgx, dgy, dxx, dyy, dri, dconic, d24, da);
+}
+
+// Adjoint of apod_weight: adds to (dpx, dpy) the pupil cotangents for the
+// cotangent dw of the launch intensity, where the weight's support passes
+// it (the taken branch of each where). The r-based profiles differentiate
+// r = sqrt(Px^2 + Py^2) as autograd and the JAX profiles do, dr / (2 r):
+// at the pupil centre 0 x inf, a NaN pupil cotangent, as in the JAX
+// package's K2.
+__device__ __forceinline__ void apod_adjoint(const float* g, float Px,
+                                             float Py, float dw, float& dpx,
+                                             float& dpy) {
+    const int code = (int)g[11];
+    if (code <= APOD_UNIFORM) return;
+    const float s2 = add(mul(Px, Px), mul(Py, Py));
+    float ds2;
+    if (code == APOD_GAUSSIAN) {
+        ds2 = -(dw * expf(dvd(-s2, g[12]))) / g[12];
+    } else {
+        const float r = sqt(s2);
+        float dr = 0.0f;
+        if (code == APOD_COSSQ && r < g[13]) {
+            const float arg = dvd(mul(PI_F, r), g[12]);
+            dr = -2.0f * cosf(arg) * dw * sinf(arg) * PI_F / g[12];
+        } else if (code == APOD_HANN && r < g[13]) {
+            const float arg = dvd(mul(TWO_PI_F, r), g[12]);
+            dr = 0.5f * dw * sinf(arg) * TWO_PI_F / g[12];
+        } else if (code == APOD_TUKEY && r <= g[14] && !(r <= g[12])) {
+            const float arg = dvd(mul(PI_F, sub(r, g[12])), g[13]);
+            dr = -0.5f * dw * sinf(arg) * PI_F / g[13];
+        } else if (code == APOD_SUPERGAUSS) {
+            const float q = dvd(r, g[12]);
+            const float w = expf(-powf(q, g[13]));
+            dr = -w * dw * g[13] * powf(q, g[13] - 1.0f) / g[12];
+        } else if (code == APOD_POLY && r < g[12]) {
+            const float q = dvd(r, g[12]);
+            const float b = sub(1.0f, mul(q, q));
+            dr = -2.0f * q * dw * g[13] * powf(b, g[13] - 1.0f) / g[12];
+        }
+        ds2 = dr * (0.5f / r);
+    }
+    dpx += ds2 * 2.0f * Px;
+    dpy += ds2 * 2.0f * Py;
 }
 
 // Adjoint of surface_step. ``in`` is the surface's input state, ``tp`` its
@@ -626,7 +990,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
                                                 float dc[NDC], float* da,
                                                 float& dgap) {
     constexpr bool WIDE = VAR != VAR_NARROW;
-    constexpr bool FF = VAR == VAR_FREEFORM;
+    constexpr bool FF = VAR >= VAR_FREEFORM;
     const float ri = c[0], conic = c[1];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
     const bool cs = WIDE && (fl & FLAG_CS);
@@ -1132,7 +1496,7 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                 const float v = warp_sum(active ? da[j] : 0.0f);
                 if (lane == 0) sw[warp * nq + q + j] = v;
             }
-            if (VAR == VAR_FREEFORM && n_extra(fl)) {
+            if (VAR >= VAR_FREEFORM && n_extra(fl)) {
                 q += nu;
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
@@ -1148,9 +1512,10 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     const float x = add(mul(Px, g[0]), g[2]);
     const float y = add(mul(Py, g[1]), g[3]);
     const float z = g[4];
-    const float dxr = sub(mul(Px, g[8]), x);
-    const float dyr = sub(mul(Py, g[9]), y);
-    const float dzr = sub(g[5], z);
+    const bool tele = g[10] != 0.0f;           // dxr = Px g8, dzr = g5
+    const float dxr = tele ? mul(Px, g[8]) : sub(mul(Px, g[8]), x);
+    const float dyr = tele ? mul(Py, g[9]) : sub(mul(Py, g[9]), y);
+    const float dzr = tele ? g[5] : sub(g[5], z);
     const float smag = sqt(add(add(mul(dxr, dxr), mul(dyr, dyr)), mul(dzr, dzr)));
     const float inv_mag = dvd(1.0f, smag);
     // (L, M, N) = (dxr, dyr, dzr) * inv_mag
@@ -1160,9 +1525,9 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     ddxr += 2.0f * dxr * dsm;
     ddyr += 2.0f * dyr * dsm;
     ddzr += 2.0f * dzr * dsm;
-    float ax = a.x - ddxr, ay = a.y - ddyr;
+    float ax = tele ? a.x : a.x - ddxr, ay = tele ? a.y : a.y - ddyr;
     // the split frame's launch z is 0, not g4
-    const float az = (MODE == OPD_SPLIT ? 0.0f : a.z) - ddzr;
+    const float az = (MODE == OPD_SPLIT ? 0.0f : a.z) - (tele ? 0.0f : ddzr);
     float dgv[NGEN];
     dgv[0] = ax * Px;            // x = Px g0 + g2
     dgv[1] = ay * Py;            // y = Py g1 + g3
@@ -1174,8 +1539,10 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     dgv[7] = ddxr * Px;          // dxr = Px g8 - x
     dgv[8] = ddyr * Py;
     if (active && dpx_wf != nullptr) {
-        dpx_wf[o] = ddxr * g[8] + ax * g[0];
-        dpy_wf[o] = ddyr * g[9] + ay * g[1];
+        float dpx = ddxr * g[8] + ax * g[0], dpy = ddyr * g[9] + ay * g[1];
+        apod_adjoint(g, Px, Py, a.inten, dpx, dpy);
+        dpx_wf[o] = dpx;
+        dpy_wf[o] = dpy;
     }
     const int qg = layout.qoff[S];
 #pragma unroll
@@ -1349,7 +1716,8 @@ static int launch_grad(dim3 grid, cudaStream_t st, const float* gen,
 // this library's GRAD_MODE; part holds gen_grad_partials_size floats;
 // dpx_wf/dpy_wf hold W*F*n floats each, or are null (then dpx/dpy are not
 // written). On success *variant, when not null, is the variant launched
-// (VAR_NARROW, VAR_WIDE or VAR_FREEFORM). Allocates nothing and does not
+// (VAR_NARROW, VAR_WIDE, VAR_FREEFORM or VAR_FORBES). Allocates nothing
+// and does not
 // synchronise.
 extern "C" int gen_grad_launch(const float* gen, const float* consts,
                                const float* acoef, const float* ztab,
@@ -1365,6 +1733,8 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
         n < 1 || C < 0 || (dpx_wf == nullptr) != (dpy_wf == nullptr) ||
         opd_mode != GRAD_MODE || !make_layout(flags, S, C, g))
         return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < S; ++k)
+        if (acoef_width_of(g.f[k]) > C) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int nblk = n_blocks(n);
     const dim3 grid((unsigned)nblk, (unsigned)F, (unsigned)W);
@@ -1372,7 +1742,11 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
     int err = 0;
     if constexpr (GRAD_MODE != OPD_SPLIT) {
         // the split mode takes no freeform sag (make_layout), so its
-        // FREEFORM variant is not built
+        // FREEFORM and FORBES variants are not built
+        if (var == VAR_FORBES)
+            err = launch_grad<VAR_FORBES>(grid, st, gen, consts, acoef, ztab,
+                                          px, py, cot, part, dpx_wf, dpy_wf, g,
+                                          S, F, W, C, n, nblk, final_prop);
         if (var == VAR_FREEFORM)
             err = launch_grad<VAR_FREEFORM>(grid, st, gen, consts, acoef, ztab,
                                             px, py, cot, part, dpx_wf, dpy_wf, g,

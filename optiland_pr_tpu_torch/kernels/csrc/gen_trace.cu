@@ -1,15 +1,16 @@
-// K1, sub-slices (a), (b), (c) but the Forbes sags, and the OPD modes of
-// (g): fused ray generation + surface stack + image propagation, one ray per
-// thread.
+// K1, sub-slices (a), (b), (c), (d) and the OPD modes of (g): fused ray
+// generation + surface stack + image propagation, one ray per thread.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_trace.py::
 // _pallas_gen_trace_2d (body _gen_kernel -> _gen_pipeline = _gen_prologue,
 // _surface_step per surface, _gen_epilogue, _nanify8) for conic, plane,
-// even/odd aspheric, XY-polynomial, Chebyshev, biconic, toroidal, Zernike
-// and thin Fresnel surfaces that refract or reflect, with absorption in the
-// pre-material, tilt/decenter, radial and offset-radial apertures and simple
-// coatings, with the plain, Kahan-compensated or split OPD sum
-// (gen_trace_common.cuh describes the sags and the modes). The device code of the three
+// even/odd aspheric, XY-polynomial, Chebyshev, biconic, toroidal, Zernike,
+// Forbes Qbfs and Q2D and thin Fresnel surfaces that refract or reflect,
+// with absorption in the pre-material, tilt/decenter, radial and
+// offset-radial apertures and simple coatings, launched at the entrance
+// pupil or object-space telecentric, with or without a closed-form
+// apodization, with the plain, Kahan-compensated or split OPD sum
+// (gen_trace_common.cuh describes the sags, the launch and the modes). The device code of the three
 // stages is gen_trace_common.cuh, which the backward kernel (gen_grad.cu)
 // shares.
 //
@@ -118,6 +119,11 @@ static void launch_mode(int var, dim3 grid, cudaStream_t st,
                         int S, int F, int W, int C, long long n,
                         int final_prop) {
     if constexpr (MODE != OPD_SPLIT) {
+        if (var == VAR_FORBES) {
+            launch<VAR_FORBES, MODE>(grid, st, gen, consts, acoef, ztab, px,
+                                     py, out, fl, S, F, W, C, n, final_prop);
+            return;
+        }
         if (var == VAR_FREEFORM) {
             launch<VAR_FREEFORM, MODE>(grid, st, gen, consts, acoef, ztab, px,
                                        py, out, fl, S, F, W, C, n, final_prop);
@@ -136,8 +142,8 @@ static void launch_mode(int var, dim3 grid, cudaStream_t st,
 // host array of S words; acoef has C floats per surface; ztab is the device
 // Zernike table; opd_mode is OPD_PLAIN, OPD_KAHAN or OPD_SPLIT (the last for
 // untilted conic/plane stacks only). On success *variant, when not null,
-// is the variant launched (VAR_NARROW, VAR_WIDE or VAR_FREEFORM). Allocates
-// nothing and does not synchronise.
+// is the variant launched (VAR_NARROW, VAR_WIDE, VAR_FREEFORM or
+// VAR_FORBES). Allocates nothing and does not synchronise.
 extern "C" int gen_trace_launch(const float* gen, const float* consts,
                                 const float* acoef, const float* ztab,
                                 const float* px,
@@ -151,7 +157,8 @@ extern "C" int gen_trace_launch(const float* gen, const float* consts,
     SurfFlags fl;
     for (int k = 0; k < MAX_SURF; ++k) {
         fl.f[k] = k < S ? flags[k] : 0;
-        if (ncoef_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS))
+        if (ncoef_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS) ||
+            acoef_width_of(fl.f[k]) > C)
             return (int)cudaErrorInvalidValue;
     }
     if (!kinds_ok(fl.f, S) || (opd_mode == OPD_SPLIT && !split_ok(fl.f, S)))

@@ -4,9 +4,10 @@
 // refract, reflect and absorb, (b) tilt/decenter, radial and offset-radial
 // apertures and simple coatings, (c) the Newton sags (even/odd aspheres, the
 // XY polynomial, the Chebyshev grid, the biconic, the toroid, the Zernike
-// sag) and the thin Fresnel surfaces (zoned, designed), all but the Forbes
-// sags, and the OPD modes of (g): the Kahan-compensated sum and the
-// split-OPD accumulation.
+// sag, the Forbes Qbfs and Q2D sags) and the thin Fresnel surfaces (zoned,
+// designed), the launch modes of (d) (the object-space telecentric aim and
+// the closed-form apodizations), and the OPD modes of (g): the
+// Kahan-compensated sum and the split-OPD accumulation.
 //
 // Both kernels run this one forward, so K2's recomputed forward is bit for
 // bit K1's, lost-ray masks included.
@@ -19,12 +20,17 @@
 // freeform normal 1663-1671, the coating 1733-1736, globalize 1738-1748),
 // _state_step's propagation sign (2057-2099, 2163-2168), _conic_base
 // (435-443), _asphere_sag_grad (396-432), _axis_conic (446-453),
-// _zernike_sag_grad (468-530), _freeform_sag_grad (841-935), the Fresnel
-// branches (1379-1383, 1672-1688, 1707-1720) and _gen_epilogue (2123-2140).
+// _zernike_sag_grad (468-530), _forbes_sigma (518), _qbfs_sag_grad (533),
+// _q2d_sag_grad (594), _freeform_sag_grad (841-935), the Fresnel branches
+// (1379-1383, 1672-1688, 1707-1720), the (d) branches of _gen_prologue
+// (telecentric 1980, 2011; apodization 1998, 2026-2051) and _gen_epilogue
+// (2123-2140).
 //
 // Layout (shared with the plain version, kernels/gen_trace.py):
 //   gen    [F, 16]     per-field launch constants (origin/aim coefficients,
-//                      field offsets, launch z, EPL, image thickness)
+//                      field offsets, launch z, EPL or the telecentric aim
+//                      distance, image thickness), 10 the telecentric flag,
+//                      11 the apodization code, 12-15 its constants
 //   consts [W, S, 32]  per-wavelength, per-surface scalars; columns
 //                      0 radius_inv 1 conic 2 pos_z 3 n1 4 n2 5 alpha_abs
 //                      6 coating factor 8-16 rotation (row-major)
@@ -33,12 +39,15 @@
 //                      24-25 the sag's own scalars: Chebyshev norm_x,
 //                      norm_y; biconic 1/radius_x, conic_x; toroid the
 //                      rotation radius (1 at infinity); Zernike
-//                      norm_radius; designed Fresnel focal_length, n_design
+//                      norm_radius; Forbes norm_radius; designed Fresnel
+//                      focal_length, n_design
 //                      27 the signed vertex gap (split mode; surface 1's
 //                      from the launch plane)
 //   acoef  [S, C]      sag coefficients, row k for surface k: asphere and
 //                      toroid terms, the XY-polynomial and Chebyshev grids
-//                      row-major (C[i][j] at i nv + j), Zernike terms
+//                      row-major (C[i][j] at i nv + j), Zernike terms, the
+//                      Forbes sags' basis-changed terms (a Q2D surface's
+//                      followed by its term structure, q2d_sag_grad)
 //   ztab   [3, MAX_TERMS, ZT_W]  each Zernike basis's term structure, built
 //                      on the host (kernels/gen_trace.py::zernike_table):
 //                      per term n, m, the normalization, the number of
@@ -104,12 +113,13 @@
 
 enum { FLAG_PLANE = 1, FLAG_REFL = 2, FLAG_ABSORB = 4, FLAG_CS = 8,
        FLAG_AP = 16, FLAG_COAT = 32 };
-// the sag kinds; 11 and 12 are kept for the Forbes Qbfs and Q2D sags
+// the sag kinds
 enum { GK_CONIC = 0, GK_EVEN = 1, GK_ODD = 2, GK_POLY = 3, GK_CHEB = 4,
        GK_BICONIC = 5, GK_TORUS = 6, GK_TORUS_INF = 7, GK_ZERNIKE = 8,
-       GK_FZONE = 9, GK_FDESIGNED = 10, GK_LAST = GK_FDESIGNED };
+       GK_FZONE = 9, GK_FDESIGNED = 10, GK_QBFS = 11, GK_Q2D = 12,
+       GK_LAST = GK_Q2D };
 enum { OPD_PLAIN = 0, OPD_KAHAN = 1, OPD_SPLIT = 2 };
-enum { VAR_NARROW = 0, VAR_WIDE = 1, VAR_FREEFORM = 2 };
+enum { VAR_NARROW = 0, VAR_WIDE = 1, VAR_FREEFORM = 2, VAR_FORBES = 3 };
 #define GKIND_SHIFT 6
 #define GKIND_MASK 15
 #define NU_SHIFT 10
@@ -128,6 +138,12 @@ __host__ __device__ __forceinline__ int basis_of(int fl) { return (fl >> BASIS_S
 __host__ __device__ __forceinline__ int ncoef_of(int fl) {
     const int gk = gkind_of(fl);
     return (gk == GK_POLY || gk == GK_CHEB) ? nu_of(fl) * nv_of(fl) : nu_of(fl);
+}
+// a Q2D sag's term structure rows after its coefficients (q2d_sag_grad)
+#define Q2D_ROWS 4
+// the columns of its acoef row a sag reads
+__host__ __device__ __forceinline__ int acoef_width_of(int fl) {
+    return gkind_of(fl) == GK_Q2D ? (1 + Q2D_ROWS) * nu_of(fl) : ncoef_of(fl);
 }
 
 struct SurfFlags {
@@ -433,15 +449,235 @@ __device__ __forceinline__ Sag zernike_sag_grad(const float* c,
     return o;
 }
 
+// ---- the Forbes sags (_forbes_sigma, _qbfs_sag_grad, _q2d_sag_grad) -------
+// On basis-changed coefficients (kernels/gen_trace.py::_forbes_coeff_vector),
+// in the plain version's order (kernels/gen_trace.py::_qbfs_sag_grad,
+// _q2d_sag_grad and geometry/forbes.py's Clenshaw sums). Each Clenshaw sum
+// runs the value's and the usq derivative's recurrences in one backward
+// pass over the terms (the derivative's step at n reads the value's at
+// n + 1), which rounds every term as the two passes of the plain version do.
+
+// the sigma^-1 projection factor and its rho derivative, in curvature form
+__device__ __forceinline__ void forbes_sigma(float ri, float k, float r2,
+                                             float rho, float& factor,
+                                             float& deriv) {
+    const float c2 = mul(ri, ri);
+    const float num = sub(1.0f, mul(mul(k, c2), r2));
+    const float den = sub(1.0f, mul(mul(add(k, 1.0f), c2), r2));
+    const float nf = sqt(num > 0.0f ? num : 1e-12f);
+    const float df = sqt(den > 0.0f ? den : 1e-12f);
+    factor = dvd(nf, df);
+    deriv = dvd(mul(c2, rho), mul(mul(mul(nf, df), df), df));
+}
+
+// sum_n bs_n P_n(us) and its derivative by us: the Clenshaw alphas
+// al_i = bs_i + (2 - 4 us) al_{i+1} - al_{i+2}, read as 2 (al_0 + al_1)
+__device__ __forceinline__ void qbfs_sum(const float* bs, int nu, float us,
+                                         float& sm, float& dsm) {
+    const float prefix = sub(2.0f, mul(4.0f, us));
+    const int m = nu - 1;
+    float a1 = 0.0f, a2 = 0.0f, d1 = 0.0f, d2 = 0.0f;  // at i + 1, i + 2
+    for (int i = m; i >= 0; --i) {
+        float al, ad;
+        if (i == m) {
+            al = add(bs[i], 0.0f);
+            ad = 0.0f;
+        } else if (i == m - 1) {
+            al = add(bs[i], mul(prefix, a1));
+            ad = mul(-4.0f, a1);
+        } else {
+            al = sub(add(bs[i], mul(prefix, a1)), a2);
+            ad = i == m - 2 ? sub(mul(prefix, d1), mul(4.0f, a1))
+                            : sub(sub(mul(prefix, d1), d2), mul(4.0f, a1));
+        }
+        a2 = a1;
+        a1 = al;
+        d2 = d1;
+        d1 = ad;
+    }
+    if (nu > 1) {
+        sm = mul(2.0f, add(a1, a2));
+        dsm = mul(2.0f, add(d1, d2));
+    } else {
+        sm = mul(2.0f, a1);
+        dsm = 0.0f;
+    }
+}
+
+// one (m, cos or sin) group of a Q2D sag: the readout al_0 / 2 (less 2/5 al_3
+// for m = 1 and more than 3 terms) of the alphas al_n = ds_n + (a_n + b_n
+// usq) al_{n+1} - c_n al_{n+2} and of their usq derivative, with a_n, b_n,
+// c_n = a(n, m), b(n, m), c(n + 1, m) from the structure rows ta, tb, tc
+__device__ __forceinline__ void q2d_group(const float* ds, const float* ta,
+                                          const float* tb, const float* tc,
+                                          int ln, int m, float usq, float& s,
+                                          float& sp) {
+    const int nmax = ln - 1;
+    float a1 = 0.0f, a2 = 0.0f, d1 = 0.0f, d2 = 0.0f, al3 = 0.0f, ad3 = 0.0f;
+    for (int n = nmax; n >= 0; --n) {
+        float al, ad;
+        if (n == nmax) {
+            al = add(ds[n], 0.0f);
+            ad = 0.0f;
+        } else {
+            const float alpha = add(ta[n], mul(tb[n], usq));
+            if (n == nmax - 1) {
+                al = add(ds[n], mul(alpha, a1));
+                ad = mul(tb[n], a1);
+            } else {
+                al = sub(add(ds[n], mul(alpha, a1)), mul(tc[n], a2));
+                ad = sub(add(mul(tb[n], a1), mul(alpha, d1)), mul(tc[n], d2));
+            }
+        }
+        if (n == 3) {
+            al3 = al;
+            ad3 = ad;
+        }
+        a2 = a1;
+        a1 = al;
+        d2 = d1;
+        d1 = ad;
+    }
+    s = mul(0.5f, a1);
+    sp = mul(0.5f, d1);
+    if (m == 1 && nmax > 2) {
+        s = sub(s, mul(0.4f, al3));
+        sp = sub(sp, mul(0.4f, ad3));
+    }
+}
+
+// conic + u^2 (1 - u^2) sigma^-1 sum_n bs_n P_n(u^2), u = r / c24: the sag's
+// sum at r^2 / c24^2, the slope's at u^2 with u = sqrt(r^2 + 1e-12) / c24,
+// zero departure beyond u = 1
+__device__ __forceinline__ Sag qbfs_sag_grad(const float* c, const float* ac,
+                                             int nu, float xx, float yy) {
+    Sag o = conic_base(c[0], c[1], xx, yy);
+    if (nu == 0) return o;
+    const float nr = c[24];
+    const float r2 = add(mul(xx, xx), mul(yy, yy));
+    const float rho = sqt(add(r2, 1e-12f));
+    const float u = dvd(rho, nr);
+    const float usq_s = dvd(r2, mul(nr, nr));
+    const float usq = mul(u, u);
+    float poly_s, unused;
+    qbfs_sum(ac, nu, usq_s, poly_s, unused);
+    float factor, dfac;
+    forbes_sigma(c[0], c[1], r2, rho, factor, dfac);
+    const float dep = mul(mul(mul(usq_s, sub(1.0f, usq_s)), factor), poly_s);
+    o.s = add(o.s, usq_s > 1.0f ? 0.0f : dep);
+    float poly_g, dpoly;
+    qbfs_sum(ac, nu, usq, poly_g, dpoly);
+    const float ds_du = mul(mul(dpoly, 2.0f), u);
+    const float dpref = dvd(sub(mul(2.0f, u), mul(mul(4.0f, u), usq)), nr);
+    const float dpoly_drho = dvd(ds_du, nr);
+    const float B = sub(usq, mul(usq, usq));
+    float dS = add(add(mul(mul(dpref, factor), poly_g), mul(mul(B, dfac), poly_g)),
+                   mul(mul(B, factor), dpoly_drho));
+    dS = u >= 1.0f ? 0.0f : dS;
+    const float inv_rho = dvd(1.0f, rho);
+    o.gx = add(o.gx, mul(mul(dS, xx), inv_rho));
+    o.gy = add(o.gy, mul(mul(dS, yy), inv_rho));
+    return o;
+}
+
+// The Q2D sag: conic + sigma^-1 [u^2 (1 - u^2) S_0(u^2) + sum_m u^m (cos m t
+// S_m^a(u^2) + sin m t S_m^b(u^2))]. ac holds the nu basis-changed
+// coefficients, then Q2D_ROWS rows of nu: each coefficient's group code (0
+// rotational, 2 m cosine, 2 m + 1 sine), a(n, m), b(n, m), c(n + 1, m).
+// cos and sin of m t by the multiple-angle recurrence on (x, y) / r, t = 0
+// at the vertex.
+__device__ __forceinline__ Sag q2d_sag_grad(const float* c, const float* ac,
+                                            int nu, float xx, float yy) {
+    Sag o = conic_base(c[0], c[1], xx, yy);
+    const float* code = ac + nu;
+    const float* ta = ac + 2 * nu;
+    const float* tb = ac + 3 * nu;
+    const float* tc = ac + 4 * nu;
+    const float nr = c[24];
+    const float r2 = add(mul(xx, xx), mul(yy, yy));
+    const float rho = sqt(add(r2, 1e-12f));
+    const float u = dvd(rho, nr);
+    const float usq = mul(u, u);
+    const bool ok = r2 > 0.0f;
+    const float rho2 = sqt(ok ? r2 : 1.0f);
+    const float cost = ok ? dvd(xx, rho2) : 1.0f;
+    const float sint = ok ? dvd(yy, rho2) : 0.0f;
+    const float cost2 = mul(2.0f, cost);
+    int n_m0 = 0;
+    while (n_m0 < nu && code[n_m0] == 0.0f) ++n_m0;
+    float s_m0 = 0.0f, d_m0_du = 0.0f;
+    if (n_m0) {
+        float ds_dusq;
+        qbfs_sum(ac, n_m0, usq, s_m0, ds_dusq);
+        d_m0_du = mul(mul(ds_dusq, 2.0f), u);
+    }
+    const int max_m = nu > n_m0 ? (int)code[nu - 1] / 2 : 0;
+    float poly = 0.0f, dr = 0.0f, dt = 0.0f;
+    float c0 = 1.0f, c1 = cost, s0 = 0.0f, s1 = sint;  // cos, sin of (m-1) t, m t
+    float upm1 = 1.0f, upm = mul(1.0f, u);             // u^(m - 1), u^m
+    int off = n_m0;
+    for (int m = 1; m <= max_m; ++m) {
+        if (m >= 2) {
+            const float cn = sub(mul(cost2, c1), c0);
+            const float sn = sub(mul(cost2, s1), s0);
+            c0 = c1;
+            c1 = cn;
+            s0 = s1;
+            s1 = sn;
+            upm1 = upm;
+            upm = mul(upm, u);
+        }
+        float sv[2] = {0.0f, 0.0f}, spv[2] = {0.0f, 0.0f};
+        for (int b = 0; b < 2; ++b) {
+            int ln = 0;
+            while (off + ln < nu && (int)code[off + ln] == 2 * m + b) ++ln;
+            if (!ln) continue;
+            q2d_group(ac + off, ta + off, tb + off, tc + off, ln, m, usq, sv[b],
+                      spv[b]);
+            off += ln;
+        }
+        const float fm = (float)m, usq2 = mul(2.0f, usq);
+        poly = add(poly, mul(upm, add(mul(c1, sv[0]), mul(s1, sv[1]))));
+        const float aterm = mul(c1, add(mul(usq2, spv[0]), mul(fm, sv[0])));
+        const float bterm = mul(s1, add(mul(usq2, spv[1]), mul(fm, sv[1])));
+        dr = add(dr, mul(upm1, add(aterm, bterm)));
+        dt = add(dt, mul(mul(fm, upm), add(mul(-sv[0], s1), mul(sv[1], c1))));
+    }
+    float factor, dfac;
+    forbes_sigma(c[0], c[1], r2, rho, factor, dfac);
+    const float B = sub(usq, mul(usq, usq));
+    const float dep = add(mul(mul(mul(usq, sub(1.0f, usq)), factor), s_m0),
+                          mul(factor, poly));
+    o.s = add(o.s, u > 1.0f ? 0.0f : dep);
+    const float dpref = dvd(sub(mul(2.0f, u), mul(mul(4.0f, u), usq)), nr);
+    const float dpoly_drho = dvd(d_m0_du, nr);
+    const float dS0 = add(add(mul(mul(dpref, factor), s_m0), mul(mul(B, dfac), s_m0)),
+                          mul(mul(B, factor), dpoly_drho));
+    const float dSg = add(mul(dfac, poly), dvd(mul(factor, dr), nr));
+    const float dSr = u >= 1.0f ? 0.0f : add(dS0, dSg);
+    const float dSt = u >= 1.0f ? 0.0f : mul(factor, dt);
+    const float inv_rho = dvd(1.0f, rho);
+    o.gx = sub(add(o.gx, mul(mul(dSr, xx), inv_rho)),
+               mul(mul(mul(dSt, yy), inv_rho), inv_rho));
+    o.gy = add(add(o.gy, mul(mul(dSr, yy), inv_rho)),
+               mul(mul(mul(dSt, xx), inv_rho), inv_rho));
+    return o;
+}
+
 // The Newton sags' dispatch: the WIDE variant compiles the even/odd asphere
-// only, the FREEFORM variant every kind.
+// only, the FREEFORM variant every kind but the Forbes sags, the FORBES
+// variant every kind.
 template <int VAR>
 __device__ __forceinline__ Sag sag_grad(int gk, int fl, const float* c,
                                         const float* ac, const float* ztab,
                                         float xx, float yy) {
     const int nu = nu_of(fl);
-    if (VAR != VAR_FREEFORM || gk == GK_EVEN || gk == GK_ODD)
+    if (VAR < VAR_FREEFORM || gk == GK_EVEN || gk == GK_ODD)
         return asphere_sag_grad(c[0], c[1], ac, nu, gk == GK_ODD, xx, yy);
+    if constexpr (VAR == VAR_FORBES) {
+        if (gk == GK_QBFS) return qbfs_sag_grad(c, ac, nu, xx, yy);
+        if (gk == GK_Q2D) return q2d_sag_grad(c, ac, nu, xx, yy);
+    }
     if (gk == GK_POLY) return poly_sag_grad(c, ac, nu, nv_of(fl), xx, yy);
     if (gk == GK_CHEB) return cheb_sag_grad(c, ac, nu, nv_of(fl), xx, yy);
     if (gk == GK_BICONIC) return biconic_sag_grad(c, xx, yy);
@@ -477,21 +713,68 @@ __device__ __forceinline__ void kahan_add(RayState& s, float v) {
     s.opd = tk;
 }
 
+// ---- the apodization weight of the launch (gen columns 11-15) -------------
+// The closed-form profiles of system/apodization.py, in the plain version's
+// order (kernels/gen_trace.py::apod_weight), with r = sqrt(Px^2 + Py^2):
+// Gaussian exp(-(Px^2 + Py^2) / p0); cosine squared cos(pi r / p0)^2 for
+// r < p1; Hann (1 - cos(2 pi r / p0)) / 2 for r < p1; Tukey 1 for r <= p0,
+// (1 + cos(pi (r - p0) / p1)) / 2 up to r <= p2; super-Gaussian
+// exp(-(r / p0)^p1); polynomial (1 - (r / p0)^2)^p1 for r < p0; 0 outside
+// each support. expf, cosf and powf are not correctly rounded, so the
+// intensity differs from the plain version's by a few ulps (PERF.md); no
+// position, direction or OPD reads it.
+#define PI_F 3.14159274101257324f      // float32 pi, as pi * r rounds it
+#define TWO_PI_F 6.28318548202514648f
+enum { APOD_NONE = 0, APOD_UNIFORM = 1, APOD_GAUSSIAN = 2, APOD_COSSQ = 3,
+       APOD_HANN = 4, APOD_TUKEY = 5, APOD_SUPERGAUSS = 6, APOD_POLY = 7 };
+
+__device__ __forceinline__ float apod_weight(const float* g, float Px,
+                                             float Py) {
+    const int code = (int)g[11];
+    if (code <= APOD_UNIFORM) return 1.0f;
+    const float s2 = add(mul(Px, Px), mul(Py, Py));
+    if (code == APOD_GAUSSIAN) return expf(dvd(-s2, g[12]));
+    const float r = sqt(s2);
+    if (code == APOD_COSSQ) {
+        const float c = cosf(dvd(mul(PI_F, r), g[12]));
+        return r < g[13] ? mul(c, c) : 0.0f;
+    }
+    if (code == APOD_HANN) {
+        const float w = mul(0.5f, sub(1.0f, cosf(dvd(mul(TWO_PI_F, r), g[12]))));
+        return r < g[13] ? w : 0.0f;
+    }
+    if (code == APOD_TUKEY) {
+        if (!(r <= g[14])) return 0.0f;
+        if (r <= g[12]) return 1.0f;
+        return mul(0.5f, add(1.0f, cosf(dvd(mul(PI_F, sub(r, g[12])), g[13]))));
+    }
+    if (code == APOD_SUPERGAUSS) return expf(-powf(dvd(r, g[12]), g[13]));
+    if (code == APOD_POLY) {
+        const float q = dvd(r, g[12]);
+        return r < g[12] ? powf(sub(1.0f, mul(q, q)), g[13]) : 0.0f;
+    }
+    return __int_as_float(0x7fc00000);         // no such profile
+}
+
 // ---- prologue: launch by generalized aiming (_gen_prologue) -------------
+// gen column 10 selects the object-space telecentric aim x1 = Px*B + x0
+// (dxr = Px g8, dzr = g5, the constant axial distance); column 11 the
+// apodization. Both are uniform over a launch, so no warp diverges on them.
 template <int MODE>
 __device__ __forceinline__ void gen_prologue(const float* g, float Px, float Py,
                                              RayState& s) {
     s.x = add(mul(Px, g[0]), g[2]);
     s.y = add(mul(Py, g[1]), g[3]);
     s.z = g[4];
-    const float dxr = sub(mul(Px, g[8]), s.x);
-    const float dyr = sub(mul(Py, g[9]), s.y);
-    const float dzr = sub(g[5], s.z);
+    const bool tele = g[10] != 0.0f;
+    const float dxr = tele ? mul(Px, g[8]) : sub(mul(Px, g[8]), s.x);
+    const float dyr = tele ? mul(Py, g[9]) : sub(mul(Py, g[9]), s.y);
+    const float dzr = tele ? g[5] : sub(g[5], s.z);
     const float inv_mag = rsq(add(add(mul(dxr, dxr), mul(dyr, dyr)), mul(dzr, dzr)));
     s.L = mul(dxr, inv_mag);
     s.M = mul(dyr, inv_mag);
     s.N = mul(dzr, inv_mag);
-    s.inten = 1.0f;
+    s.inten = apod_weight(g, Px, Py);
     s.opd = 0.0f;
     s.opd_c = 0.0f;
     s.valid = true;
@@ -509,7 +792,7 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
                                              float sigma, RayState& s,
                                              SurfTape& tp) {
     constexpr bool WIDE = VAR != VAR_NARROW;
-    constexpr bool FF = VAR == VAR_FREEFORM;
+    constexpr bool FF = VAR >= VAR_FREEFORM;
     const float ri = c[0], conic = c[1], pos_z = c[2];
     const float n1 = c[3], n2 = c[4], alpha = c[5];
     const bool cs = WIDE && (fl & FLAG_CS);
@@ -753,8 +1036,10 @@ static inline bool kinds_ok(const int32_t* flags, int S) {
 static inline int variant_of(const int32_t* flags, int S) {
     int v = VAR_NARROW;
     for (int k = 0; k < S; ++k) {
-        if (gkind_of(flags[k]) >= GK_POLY) return VAR_FREEFORM;
-        if (flags[k] & WIDE_MASK) v = VAR_WIDE;
+        const int gk = gkind_of(flags[k]);
+        if (gk == GK_QBFS || gk == GK_Q2D) return VAR_FORBES;
+        if (gk >= GK_POLY) v = VAR_FREEFORM;
+        else if ((flags[k] & WIDE_MASK) && v == VAR_NARROW) v = VAR_WIDE;
     }
     return v;
 }

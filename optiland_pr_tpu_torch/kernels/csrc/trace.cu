@@ -5,8 +5,7 @@
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_trace.py::
 // _pallas_call_2d (body _kernel: _surface_step per surface with validity
 // starting true, then _nanify8), entered through pallas_trace_conic, for the
-// surfaces K1 covers (sub-slices (a), (b), (c) but the Forbes sags) in the
-// plain OPD mode. The surface step is K1's (gen_trace_common.cuh::
+// surfaces K1 covers (sub-slices (a), (b), (c)) in the plain OPD mode. The surface step is K1's (gen_trace_common.cuh::
 // surface_step), so K3 rounds every operation as K1 and its plain version do.
 //
 // Layout (shared with the plain version, kernels/trace_conic.py):
@@ -18,7 +17,8 @@
 // Design: K1's, without the generation: grid ceil(n/256) blocks, the [S, 32]
 // rows staged in shared memory, the ray state in registers through the whole
 // stack, the ragged tail masked, the 8 outputs written once. The host picks
-// the variant (narrow, WIDE, FREEFORM) from the flag words as for K1.
+// the variant (narrow, WIDE, FREEFORM, FORBES) from the flag words as for
+// K1.
 //
 // Bounds on an H100: 64 B moved per ray (8 floats in, 8 out), ~500 FP32
 // operations per ray on the Cooke triplet's 7 surfaces (chip_smoke.py's
@@ -75,8 +75,8 @@ trace_kernel(const float* __restrict__ consts, const float* __restrict__ acoef,
 // Launch on ``stream``; returns cudaGetLastError() (0 on success). flags is a
 // host array of S words; acoef has C floats per surface; ztab is the device
 // Zernike table; rays and out are [8, n]. On success *variant, when not
-// null, is the variant launched (VAR_NARROW, VAR_WIDE or VAR_FREEFORM).
-// Allocates nothing and does not synchronise.
+// null, is the variant launched (VAR_NARROW, VAR_WIDE, VAR_FREEFORM or
+// VAR_FORBES). Allocates nothing and does not synchronise.
 extern "C" int trace_launch(const float* consts, const float* acoef,
                             const float* ztab, const float* rays, float* out,
                             const int32_t* flags, int S, int C, long long n,
@@ -87,14 +87,18 @@ extern "C" int trace_launch(const float* consts, const float* acoef,
     SurfFlags fl;
     for (int k = 0; k < MAX_SURF; ++k) {
         fl.f[k] = k < S ? flags[k] : 0;
-        if (ncoef_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS))
+        if (ncoef_of(fl.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS) ||
+            acoef_width_of(fl.f[k]) > C)
             return (int)cudaErrorInvalidValue;
     }
     if (!kinds_ok(fl.f, S)) return (int)cudaErrorInvalidValue;
     const unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
     const int var = variant_of(fl.f, S);
     cudaStream_t st = (cudaStream_t)stream;
-    if (var == VAR_FREEFORM)
+    if (var == VAR_FORBES)
+        trace_kernel<VAR_FORBES><<<grid, BLOCK, 0, st>>>(consts, acoef, ztab,
+                                                         rays, out, fl, S, C, n);
+    else if (var == VAR_FREEFORM)
         trace_kernel<VAR_FREEFORM><<<grid, BLOCK, 0, st>>>(consts, acoef, ztab,
                                                            rays, out, fl, S, C, n);
     else if (var == VAR_WIDE)

@@ -1,5 +1,5 @@
 """K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b),
-(c) but the Forbes sags, and the OPD modes of (g) (counterpart of
+(c), (d) and the OPD modes of (g) (counterpart of
 ``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
 ``diff_gen_trace`` custom_vjp).
 

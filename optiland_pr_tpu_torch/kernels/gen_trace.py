@@ -1,7 +1,7 @@
 """K1 in the port: fused ray generation + surface stack + image propagation
 (counterpart of ``optiland_pr_tpu/kernels/pallas_trace.py::_pallas_gen_trace_2d``
-and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c)
-but the Forbes sags, and (g):
+and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
+(d) and (g):
 - (a) conic and plane surfaces that refract or reflect, with absorption in
   the pre-material;
 - (b) tilted and decentered surfaces (localize before the intersection,
@@ -9,13 +9,18 @@ but the Forbes sags, and (g):
   (intensity masking in the local frame) and simple coatings (an intensity
   factor after the interaction);
 - (c), the Newton sags (even and odd aspheres, the XY polynomial, the
-  Chebyshev grid, the biconic, the toroid and the Zernike sag): the conic
-  root as a warm start, exactly ``NEWTON_ITERS`` Newton steps without
-  gradient, then one differentiable step (its gradient is the
-  implicit-function-theorem one); and the two thin Fresnel surfaces, met at
+  Chebyshev grid, the biconic, the toroid, the Zernike sag and the Forbes
+  Qbfs and Q2D sags on basis-changed coefficients): the conic root as a
+  warm start, exactly ``NEWTON_ITERS`` Newton steps without gradient, then
+  one differentiable step (its gradient is the implicit-function-theorem
+  one); and the two thin Fresnel surfaces, met at
   their base plane, which refract with the parent conic's slope
   ("fresnel_zone") or with the designed facet slope
   m = -sin t / (n_design - cos t), tan t = r / f ("fresnel_designed");
+- (d), the launch modes: the object-space telecentric aim x1 = Px*B + x0
+  at the constant axial distance sqrt(1 - sin_u^2) / sin_u, and the seven
+  closed-form apodizations on the launch intensity (gen columns 10-15,
+  ``LAUNCH_COLUMNS``, read at run time in every variant);
 - (g), the OPD precision modes (``OPD_MODES``): "kahan", the compensated
   sum of the path lengths, and "split", the split-OPD accumulation of
   untilted conic/plane stacks (``supports_split_opd``): z is carried local
@@ -61,6 +66,9 @@ import torch
 
 from ..core.rays import Rays
 from ..core.transforms import rotation_matrix
+from ..geometry.forbes import (abc_q2d, clenshaw_q2d, clenshaw_q2d_der,
+                               q2d_basis_matrix, q2d_layout, q2d_sum,
+                               qbfs_basis_matrix, qbfs_sum)
 from ..system.model import OpticModel, positions_from_params
 
 __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
@@ -75,9 +83,18 @@ __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
 CONST_W = 32       # per-surface constant row width
 GEN_W = 16         # per-field launch row width
 MAX_SURFACES = 64  # the kernel's static flag table (csrc/gen_trace.cu)
+# gen columns 10-15, the launch mode: the telecentric flag, the
+# apodization code (system/apodization.py::APOD_KINDS) and its constants
+LAUNCH_COLUMNS = ("telecentric", "apod_code", "apod_p0", "apod_p1",
+                  "apod_p2", "apod_p3")
 MAX_TERMS = 32     # sag coefficients a surface may carry (csrc/gen_grad.cu)
+Q2D_ROWS = 4       # a Q2D surface's structure rows in acoef (q2d_structure)
 NEWTON_ITERS = 8   # fixed Newton refinements of an asphere intersection
 _EPS = 1e-14
+# pi and 2 pi as the apodization profiles multiply by them: rounded to
+# float32 (a float32 product with a Python float)
+_PI_F = float(np.float32(math.pi))
+_TWO_PI_F = float(np.float32(2 * math.pi))
 # the kernels' OPD modes (csrc/gen_trace_common.cuh: OPD_PLAIN, OPD_KAHAN,
 # OPD_SPLIT), by their integer codes
 OPD_MODES = ("plain", "kahan", "split")
@@ -90,22 +107,24 @@ FLAG_PLANE, FLAG_REFL, FLAG_ABSORB = 1, 2, 4
 FLAG_CS, FLAG_AP, FLAG_COAT = 8, 16, 32
 GKIND_SHIFT, NU_SHIFT, NV_SHIFT, BASIS_SHIFT = 6, 10, 16, 22
 GKIND_MASK, NTERM_MASK, BASIS_MASK = 15, 63, 3
-# codes 11 and 12 are kept for the Forbes Qbfs and Q2D sags
 _GKIND_CODES = {"conic": 0, "even": 1, "odd": 2, "poly": 3, "cheb": 4,
                 "biconic": 5, "toroidal": 6, "toroidal_inf": 7,
-                "zernike": 8, "fresnel_zone": 9, "fresnel_designed": 10}
+                "zernike": 8, "fresnel_zone": 9, "fresnel_designed": 10,
+                "qbfs": 11, "q2d": 12}
 _KERNEL_KINDS = {"standard": "conic", "plane": "conic",
                  "even_asphere": "even", "odd_asphere": "odd",
                  "polynomial_xy": "poly", "chebyshev": "cheb",
                  "biconic": "biconic", "toroidal": "toroidal",
                  "zernike": "zernike", "fresnel_zone": "fresnel_zone",
-                 "fresnel_designed": "fresnel_designed"}
+                 "fresnel_designed": "fresnel_designed",
+                 "forbes_qbfs": "qbfs", "forbes_q2d": "q2d"}
 FRESNEL_KINDS = ("fresnel_zone", "fresnel_designed")
 # the kernels' variants (csrc/gen_trace_common.cuh: VAR_NARROW, VAR_WIDE,
-# VAR_FREEFORM), by the codes the launchers report: sub-slice (a); with (b)
-# and the even/odd aspheres; with the other sags of (c). The launchers pick
-# the variant (variant_of) and the wrappers count what they report
-VARIANTS = ("narrow", "wide", "freeform")
+# VAR_FREEFORM, VAR_FORBES), by the codes the launchers report: sub-slice
+# (a); with (b) and the even/odd aspheres; with the other sags of (c) but
+# the Forbes sags; with the Forbes sags too. The launchers pick the variant
+# (variant_of) and the wrappers count what they report
+VARIANTS = ("narrow", "wide", "freeform", "forbes")
 # the Zernike bases by their codes in the flag word
 ZERNIKE_BASES = ("standard", "fringe", "noll")
 ZT_W = 32          # floats per term of the Zernike table (zernike_table)
@@ -125,21 +144,33 @@ def n_coefs(gkind: str, nu: int, nv: int) -> int:
     return nu * nv if gkind in ("poly", "cheb") else nu
 
 
+def acoef_width(gkind: str, nu: int, nv: int) -> int:
+    """Columns of its ``acoef`` row a surface's sag reads: its
+    coefficients, and for a Q2D surface the term structure behind them
+    (``Q2D_ROWS`` rows of nu, ``q2d_structure``)."""
+    return (1 + Q2D_ROWS) * nu if gkind == "q2d" else n_coefs(gkind, nu, nv)
+
+
 def _sag_shape(geom) -> tuple:
-    """(nu, nv) of a geometry: its terms, or its coefficient grid."""
+    """(nu, nv) of a geometry: its terms, or its coefficient grid; a Q2D
+    surface's nu counts its basis-changed coefficients (``q2d_layout``),
+    which gaps in its (n, m) terms make more than its terms."""
     if geom.kind in ("polynomial_xy", "chebyshev"):
         return geom.num_x, geom.num_y
+    if geom.kind == "forbes_q2d":
+        return _q2d_count(geom.terms), 0
     return getattr(geom, "num_terms", 0), 0
 
 
 def supports_model(model: OpticModel) -> bool:
     """True if every inner surface is in the ported sub-slices: a conic,
     plane, even- or odd-aspheric, XY-polynomial, Chebyshev, biconic,
-    toroidal, Zernike or thin Fresnel surface that refracts or reflects,
-    tilted or not, with no aperture or a radial or offset-radial one, no
-    coating or a simple one, at most ``MAX_TERMS`` sag coefficients, and the
-    stack fits the kernel's flag table. A Fresnel coating (the polarization
-    chain, sub-slice (e)) is refused."""
+    toroidal, Zernike, Forbes Qbfs or Q2D or thin Fresnel surface that
+    refracts or reflects, tilted or not, with no aperture or a radial or
+    offset-radial one, no coating or a simple one, at most ``MAX_TERMS``
+    sag coefficients (a Q2D surface: basis-changed ones, of orders |m| up to
+    ``MAX_TERMS``), and the stack fits the kernel's flag table. A Fresnel
+    coating (the polarization chain, sub-slice (e)) is refused."""
     if model.num_surfaces - 1 > MAX_SURFACES:
         return False
     for spec in model.surfaces[1:]:
@@ -148,6 +179,9 @@ def supports_model(model: OpticModel) -> bool:
         nu, nv = _sag_shape(spec.geometry)
         if (max(nu, nv) > NTERM_MASK or n_coefs(
                 _KERNEL_KINDS[spec.geometry.kind], nu, nv) > MAX_TERMS):
+            return False
+        if spec.geometry.kind == "forbes_q2d" and \
+                spec.geometry.max_m > MAX_TERMS:
             return False
         if spec.aperture is not None and spec.aperture.kind not in (
                 "radial", "offset_radial"):
@@ -170,7 +204,11 @@ def supports_split_opd(model: OpticModel) -> bool:
 def gen_eligible(model: OpticModel) -> bool:
     """Launch modes the fused generation covers: origin x0 = Px*A + xf aimed
     at x1 = Px*B on the entrance-pupil plane (angle fields, finite-object
-    object-height fields, paraxial-image-height fields)."""
+    object-height fields, paraxial-image-height fields), or the telecentric
+    aim x1 = Px*B + x0 at the constant axial distance sqrt(1 - sin_u^2) /
+    sin_u, which needs a finite object (``pallas_trace.py:136``)."""
+    if model.obj_space_telecentric and model._object_infinite:
+        return False
     if model.field_type == "angle":
         return True
     if model.field_type == "object_height":
@@ -191,10 +229,12 @@ class SurfaceFlags(NamedTuple):
     """Static flags of an inner surface, the JAX package's fields of this
     scope (``pallas_trace.py::model_flags``) in the port's order. gkind is
     "conic", "even", "odd", "poly", "cheb", "biconic", "toroidal",
-    "toroidal_inf" (an infinite rotation radius), "zernike", "fresnel_zone"
-    or "fresnel_designed"; nu the number of sag terms or the x size of a
+    "toroidal_inf" (an infinite rotation radius), "zernike", "qbfs", "q2d",
+    "fresnel_zone" or "fresnel_designed"; nu the number of sag coefficients
+    (``n_coefs``; a Q2D surface's basis-changed ones) or the x size of a
     coefficient grid, nv its y size (else 0); coat "none", "simple" or
-    "fresnel"; gextra the Zernike basis (else None)."""
+    "fresnel"; gextra the Zernike basis or the Q2D (n, m) terms (else
+    None)."""
     is_plane: bool
     is_refl: bool
     absorbing: bool
@@ -222,7 +262,8 @@ def model_flags(model: OpticModel, params=None) -> tuple:
         nu, nv = _sag_shape(spec.geometry) if gkind != "conic" else (0, 0)
         if gkind == "toroidal" and _hint_isinf(spec, params, k, "radius_rot"):
             gkind = "toroidal_inf"
-        gextra = spec.geometry.zernike_type if gkind == "zernike" else None
+        gextra = {"zernike": getattr(spec.geometry, "zernike_type", None),
+                  "q2d": getattr(spec.geometry, "terms", None)}.get(gkind)
         coat = "none" if spec.coating is None else spec.coating.kind
         flags.append(SurfaceFlags(bool(is_plane), bool(spec.is_reflective),
                                   bool(absorbing), gkind, nu,
@@ -238,7 +279,9 @@ def _flag_words(flags) -> list:
          gextra) in flags:
         if (coat not in ("none", "simple") or gkind not in _GKIND_CODES
                 or not 0 <= nu <= NTERM_MASK or not 0 <= nv <= NTERM_MASK
-                or n_coefs(gkind, nu, nv) > MAX_TERMS):
+                or n_coefs(gkind, nu, nv) > MAX_TERMS
+                or (gkind == "q2d" and (gextra is None or _q2d_count(gextra)
+                                        != nu))):
             raise ValueError(f"no kernel for coating {coat!r} or sag "
                              f"{gkind!r} with ({nu}, {nv}) terms")
         basis = ZERNIKE_BASES.index(gextra) if gkind == "zernike" else 0
@@ -251,6 +294,34 @@ def _flag_words(flags) -> list:
                      | (nu << NU_SHIFT) | (nv << NV_SHIFT)
                      | (basis << BASIS_SHIFT))
     return words
+
+
+def _q2d_count(terms) -> int:
+    """The basis-changed coefficients of a Q2D term list."""
+    n_m0, len_a, len_b = q2d_layout(terms)
+    return n_m0 + sum(len_a) + sum(len_b)
+
+
+@functools.lru_cache(maxsize=None)
+def q2d_structure(terms: tuple) -> tuple:
+    """The term structure of a Q2D surface behind its basis-changed
+    coefficients, as the kernels read it from the ``acoef`` row after the
+    coefficients (``Q2D_ROWS`` rows of nu floats): per coefficient j, in
+    the packed order ([m = 0 | cosine m = 1 | sine m = 1 | ...], each group
+    in ascending n), its group's code (0 for the rotational group, 2 m for
+    cosine, 2 m + 1 for sine) and the Pnm recurrence's a(n, m), b(n, m) and
+    c(n + 1, m) at its n (zero where the recurrence does not read them).
+    Float64 Python numbers; the CUDA table holds them rounded to float32,
+    as the plain version's float32 products round them."""
+    n_m0, len_a, len_b = q2d_layout(terms)
+    rows = [(0.0, 0.0, 0.0, 0.0)] * n_m0
+    for m in range(1, len(len_a)):
+        for ln, code in ((len_a[m], 2 * m), (len_b[m], 2 * m + 1)):
+            for n in range(ln):
+                a, b, _ = abc_q2d(n, m) if n < ln - 1 else (0.0, 0.0, 0.0)
+                c = abc_q2d(n + 1, m)[2] if n < ln - 2 else 0.0
+                rows.append((float(code), float(a), float(b), float(c)))
+    return tuple(tuple(r[i] for r in rows) for i in range(Q2D_ROWS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,6 +433,8 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
              "toroidal": lambda: [torch.where(
                  torch.isinf(gp["radius_rot"]), 1.0, gp["radius_rot"]), 0.0],
              "zernike": lambda: [gp["norm_radius"], 0.0],
+             "forbes_qbfs": lambda: [gp["norm_radius"], 0.0],
+             "forbes_q2d": lambda: [gp["norm_radius"], 0.0],
              "fresnel_designed": lambda: [gp["focal_length"],
                                           gp["n_design"]]}
     g24 = extra.get(spec.geometry.kind, lambda: [0.0, 0.0])()
@@ -398,23 +471,56 @@ _COEF_LEAVES = {"even_asphere": "coefficients", "odd_asphere": "coefficients",
                 "toroidal": "coeffs_poly_y", "zernike": "coefficients"}
 
 
+def _forbes_coeff_vector(geom, gp):
+    """A Forbes surface's coefficients through the Qbfs -> Pn and Q2D -> Pnm
+    basis changes, in float32 (``pallas_trace.py::_geom_coeff_vector``
+    :341-348, ``_q2d_packed_coeffs`` :352), so that the kernel's Clenshaw
+    sums work on the Pn/Pnm expansion; a Q2D surface's is followed by its
+    term structure (``q2d_structure``). Differentiable."""
+    c = gp["coefficients"].to(torch.float32)
+
+    def basis(M, v):
+        return torch.as_tensor(M, dtype=torch.float32, device=c.device) @ v
+    if geom.kind == "forbes_qbfs":
+        n = geom.num_terms
+        return basis(qbfs_basis_matrix(n), c[:n]) if n else None
+    cm0, ams, bms = geom.grouped(c)
+    parts = []
+    if cm0:
+        parts.append(basis(qbfs_basis_matrix(len(cm0)), torch.stack(cm0)))
+    for m in range(1, geom.max_m + 1):
+        for coefs in (ams[m], bms[m]):
+            if coefs:
+                parts.append(basis(q2d_basis_matrix(len(coefs), m),
+                                   torch.stack(coefs)))
+    if not parts:
+        return None
+    table = torch.tensor(q2d_structure(geom.terms), dtype=torch.float32,
+                         device=c.device).reshape(-1)
+    return torch.cat(parts + [table])
+
+
 def pack_asphere_coeffs(model: OpticModel, params):
     """float32 [S-1, C] geometry coefficients, zero-padded, C at least 8 and
     a multiple of 8 (``pallas_trace.py::pack_asphere_coeffs`` and
     ``_geom_coeff_vector``): the even or odd asphere's terms, the XY
     polynomial's and the Chebyshev sag's grids row-major (C[i, j] at
-    i * nv + j), the toroid's y-polynomial and the Zernike coefficients;
+    i * nv + j), the toroid's y-polynomial, the Zernike coefficients and
+    the Forbes surfaces' basis-changed ones (``_forbes_coeff_vector``);
     other surfaces carry none. The packing is differentiable, so
     coefficient gradients flow back into the tree."""
     ref = params["surfaces"][0]["thickness"]
     vecs = []
     for k in range(1, model.num_surfaces):
-        leaf = _COEF_LEAVES.get(model.surfaces[k].geometry.kind)
+        geom = model.surfaces[k].geometry
+        leaf = _COEF_LEAVES.get(geom.kind)
         v = None
         if leaf is not None:
             v = params["surfaces"][k]["geom"][leaf].to(
                 torch.float32).reshape(-1)
             v = v if v.shape[0] else None
+        elif geom.kind in ("forbes_qbfs", "forbes_q2d"):
+            v = _forbes_coeff_vector(geom, params["surfaces"][k]["geom"])
         vecs.append(v)
     cmax = max([8] + [v.shape[0] for v in vecs if v is not None])
     cmax = ((cmax + 7) // 8) * 8
@@ -424,12 +530,18 @@ def pack_asphere_coeffs(model: OpticModel, params):
                         for v in vecs])
 
 
-def gen_tables(model: OpticModel, params, wavelength, Hx=0.0, Hy=0.0):
+def gen_tables(model: OpticModel, params, wavelength, Hx=0.0, Hy=0.0,
+               apodization=None):
     """(gen [F, 16], consts [W, S-1, 32], acoef [S-1, C]), all float32,
     for the fields (Hx, Hy) (scalars or 1-D) and the wavelength(s).
 
     Vignetting folds into the half-EPD terms; the field coordinates are
-    rounded to float32 first, as the JAX package does."""
+    rounded to float32 first, as the JAX package does. A telecentric
+    launch (``pallas_gen_trace_conic``, ``pallas_trace.py:2354-2367``) puts
+    the axial aim distance sqrt(1 - sin_u^2) / sin_u in column 5 and the
+    vignetting factors in columns 8-9, and sets column 10; an apodization
+    (one of ``system/apodization.py``'s profiles) puts its code in column
+    11 and its constants in columns 12-15 (``LAUNCH_COLUMNS``)."""
     from ..trace.paraxial import Paraxial
     from ..trace.raygen import _ray_origins, vig_factor
 
@@ -445,6 +557,7 @@ def gen_tables(model: OpticModel, params, wavelength, Hx=0.0, Hy=0.0):
     Hya = torch.atleast_1d(torch.as_tensor(Hy, dtype=torch.float32))
     Hxa, Hya = torch.broadcast_tensors(Hxa.to(dev, dt), Hya.to(dev, dt))
     zero = torch.zeros((), dtype=dt, device=dev)
+    launch = _launch_row(model, apodization)
     rows = []
     for f in range(Hxa.shape[0]):
         hx, hy = Hxa[f], Hya[f]
@@ -459,13 +572,33 @@ def gen_tables(model: OpticModel, params, wavelength, Hx=0.0, Hy=0.0):
             ax, ay = EPD / 2 * vx, EPD / 2 * vy
         else:
             ax = ay = zero
+        if model.obj_space_telecentric:
+            sin_u = params["aperture_value"].reshape(())
+            aim = [torch.sqrt(1.0 - sin_u * sin_u) / sin_u, vx, vy]
+        else:
+            aim = [EPL.reshape(()), (EPD / 2 * vx).reshape(()),
+                   (EPD / 2 * vy).reshape(())]
         t_img = params["surfaces"][-1]["thickness"].reshape(())
         rows.append(torch.stack(
             [ax.reshape(()), ay.reshape(()), x0c[0], y0c[0], z0c[0],
-             EPL.reshape(()), t_img, zero, (EPD / 2 * vx).reshape(()),
-             (EPD / 2 * vy).reshape(())] + [zero] * 6))
+             aim[0], t_img, zero, aim[1], aim[2]]
+            + [zero + v for v in launch]))
     gen = torch.stack(rows).to(torch.float32)
     return gen, consts, pack_asphere_coeffs(model, params)
+
+
+def _launch_row(model: OpticModel, apodization) -> list:
+    """gen columns 10-15 (``LAUNCH_COLUMNS``): the telecentric flag, the
+    apodization's code and its constants, as float64 Python numbers."""
+    from ..system.apodization import kernel_apodization
+    if not kernel_apodization(apodization):
+        raise ValueError("K1 evaluates the closed-form apodizations of "
+                         "system/apodization.py only")
+    code, consts = (0, ()) if apodization is None else \
+        apodization.kernel_params()
+    row = [1.0 if model.obj_space_telecentric else 0.0, float(code)]
+    row += [float(v) for v in consts]
+    return row + [0.0] * (len(LAUNCH_COLUMNS) - len(row))
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +613,50 @@ def _sqrt(v):
     if v.dtype == torch.float32 and v.device.type == "cpu":
         return torch.sqrt(v.double()).float()
     return torch.sqrt(v)
+
+
+def launch_mode(gen) -> tuple:
+    """(telecentric, apodization code) of gen columns 10-11, read on the
+    host; every field's row must agree."""
+    host = gen[:, 10:12].detach().cpu()
+    if not bool((host == host[0]).all()):
+        raise ValueError("the fields' launch modes differ")
+    return bool(host[0, 0] != 0), int(host[0, 1])
+
+
+def apod_weight(code: int, p, px, py):
+    """The launch intensity of the apodization ``code`` (an index of
+    ``system/apodization.py::APOD_KINDS``) at the pupil samples, in the
+    kernel's operation order (``csrc/gen_trace_common.cuh::apod_weight``),
+    or None for a weight of 1. ``p(j)`` is the profile's constant j (gen
+    column 12 + j). The profiles that depend on r = sqrt(Px^2 + Py^2)
+    differentiate the root at the pupil centre as the JAX profiles do (NaN
+    pupil cotangents there); the polynomial profile's power takes 1 outside
+    its support (the double where)."""
+    if code <= 1:
+        return None
+    s2 = px * px + py * py
+    if code == 2:                               # Gaussian
+        return torch.exp(-s2 / p(0))
+    r = _sqrt(s2)
+    if code == 3:                               # cosine squared
+        c = torch.cos(_PI_F * r / p(0))
+        return torch.where(r < p(1), c * c, 0.0)
+    if code == 4:                               # Hann
+        w = 0.5 * (1.0 - torch.cos(_TWO_PI_F * r / p(0)))
+        return torch.where(r < p(1), w, 0.0)
+    if code == 5:                               # Tukey
+        taper = 0.5 * (1.0 + torch.cos(_PI_F * (r - p(0)) / p(1)))
+        out = torch.where(r <= p(0), 1.0, taper)
+        return torch.where(r <= p(2), out, 0.0)
+    if code == 6:                               # super-Gaussian
+        return torch.exp(-torch.pow(r / p(0), p(1)))
+    if code == 7:                               # polynomial
+        q = r / p(0)
+        inside = r < p(0)
+        base = torch.where(inside, 1.0 - q * q, 1.0)
+        return torch.where(inside, torch.pow(base, p(1)), 0.0)
+    raise ValueError(f"unknown apodization code {code}")
 
 
 def _eps_guard(v):
@@ -658,7 +835,116 @@ def _sag_grad(gkind, nu, nv, gextra, c, coefs, xx, yy):
                 torch.where(ok, sgn_r * dz * dzy * inv_root, 0.0))
     if gkind == "zernike":
         return _zernike_sag_grad(ri, conic, c(24), coefs, gextra, xx, yy)
+    if gkind == "qbfs":
+        return _qbfs_sag_grad(ri, conic, c(24), coefs, xx, yy)
+    if gkind == "q2d":
+        return _q2d_sag_grad(ri, conic, c(24), coefs, gextra, xx, yy)
     raise ValueError(f"no Newton sag {gkind!r}")
+
+
+def _forbes_sigma(ri, k, r2, rho):
+    """The Forbes sags' sigma^-1 projection factor and its rho derivative
+    in curvature form (``pallas_trace.py::_forbes_sigma``)."""
+    c2 = ri * ri
+    num_arg = 1.0 - k * c2 * r2
+    den_arg = 1.0 - (k + 1.0) * c2 * r2
+    nf = _sqrt(torch.where(num_arg > 0, num_arg, 1e-12))
+    df = _sqrt(torch.where(den_arg > 0, den_arg, 1e-12))
+    return nf / df, (c2 * rho) / (nf * df * df * df)
+
+
+def _qbfs_sag_grad(ri, conic, nr, bs, xx, yy):
+    """The Forbes Qbfs sag and slopes on its basis-changed coefficients
+    ``bs`` (``pallas_trace.py::_qbfs_sag_grad``): the sag's Clenshaw sum at
+    r^2 / nr^2, the slope's at u^2 with u = sqrt(r^2 + 1e-12) / nr."""
+    s, gx, gy = _conic_base(ri, conic, xx, yy)
+    if not bs:
+        return s, gx, gy
+    r2 = xx * xx + yy * yy
+    rho = _sqrt(r2 + 1e-12)
+    u = rho / nr
+    usq_s = r2 / (nr * nr)
+    usq = u * u
+    poly_s, _ = qbfs_sum(bs, usq_s)
+    factor, dfac = _forbes_sigma(ri, conic, r2, rho)
+    dep = usq_s * (1.0 - usq_s) * factor * poly_s
+    s = s + torch.where(usq_s > 1, 0.0, dep)
+    poly_g, dpoly = qbfs_sum(bs, usq)
+    ds_du = dpoly * 2.0 * u
+    dpref = (2.0 * u - 4.0 * u * usq) / nr
+    dpoly_drho = ds_du / nr
+    dS = (dpref * factor * poly_g + (usq - usq * usq) * dfac * poly_g
+          + (usq - usq * usq) * factor * dpoly_drho)
+    dS = torch.where(u >= 1, 0.0, dS)
+    inv_rho = 1.0 / rho
+    return s, gx + dS * xx * inv_rho, gy + dS * yy * inv_rho
+
+
+def _q2d_sag_grad(ri, conic, nr, coefs, terms, xx, yy):
+    """The Forbes Q2D sag and slopes on its basis-changed coefficient groups
+    (``pallas_trace.py::_q2d_sag_grad``): the rotational group by the Qbfs
+    sum, each (m, cos/sin) group by the Pnm Clenshaw sums, cos and sin of
+    m theta by the multiple-angle recurrence from (x, y) / r."""
+    n_m0, len_a, len_b = q2d_layout(terms)
+    max_m = len(len_a) - 1
+    s, bx, by = _conic_base(ri, conic, xx, yy)
+    r2 = xx * xx + yy * yy
+    rho = _sqrt(r2 + 1e-12)
+    u = rho / nr
+    usq = u * u
+    # cos and sin of theta; at the vertex theta = 0, as the geometry's
+    # arctan2(0, 0) (the JAX kernel's centre tweak compares the padded rho,
+    # never below 1e-12, and divides 0 by 0 there)
+    s2 = xx * xx + yy * yy
+    ok = s2 > 0
+    rho2 = _sqrt(torch.where(ok, s2, 1.0))
+    cost = torch.where(ok, xx / rho2, 1.0)
+    sint = torch.where(ok, yy / rho2, 0.0)
+    cs, sn = [torch.ones_like(cost), cost], [torch.zeros_like(sint), sint]
+    for _ in range(2, max_m + 1):
+        cs.append(2.0 * cost * cs[-1] - cs[-2])
+        sn.append(2.0 * cost * sn[-1] - sn[-2])
+    zero = torch.zeros_like(u)
+    if n_m0:
+        s_m0, ds_dusq = qbfs_sum(coefs[:n_m0], usq)
+        d_m0_du = ds_dusq * 2.0 * u
+    else:
+        s_m0, d_m0_du = zero, zero
+    off = n_m0
+    up = [torch.ones_like(u)]
+    for _ in range(max_m):
+        up.append(up[-1] * u)
+    poly, dr, dt = zero, zero, zero
+    for m in range(1, max_m + 1):
+        sv = {True: (zero, zero), False: (zero, zero)}
+        for ln, is_a in ((len_a[m], True), (len_b[m], False)):
+            if not ln:
+                continue
+            ds = coefs[off:off + ln]
+            off += ln
+            al0 = clenshaw_q2d(ds, m, usq)
+            al1 = clenshaw_q2d_der(ds, m, usq, al0)
+            sv[is_a] = (q2d_sum(al0, m, ln), q2d_sum(al1, m, ln))
+        (s_a, sp_a), (s_b, sp_b) = sv[True], sv[False]
+        poly = poly + up[m] * (cs[m] * s_a + sn[m] * s_b)
+        aterm = cs[m] * (2.0 * usq * sp_a + m * s_a)
+        bterm = sn[m] * (2.0 * usq * sp_b + m * s_b)
+        dr = dr + up[m - 1] * (aterm + bterm)
+        dt = dt + m * up[m] * (-s_a * sn[m] + s_b * cs[m])
+    factor, dfac = _forbes_sigma(ri, conic, r2, rho)
+    dep = usq * (1.0 - usq) * factor * s_m0 + factor * poly
+    s = s + torch.where(u > 1, 0.0, dep)
+    dpref = (2.0 * u - 4.0 * u * usq) / nr
+    dpoly_drho = d_m0_du / nr
+    dS0 = (dpref * factor * s_m0 + (usq - usq * usq) * dfac * s_m0
+           + (usq - usq * usq) * factor * dpoly_drho)
+    dSg = dfac * poly + factor * dr / nr
+    dS_drho = torch.where(u >= 1, 0.0, dS0 + dSg)
+    dS_dth = torch.where(u >= 1, 0.0, factor * dt)
+    inv_rho = 1.0 / rho
+    gx = bx + dS_drho * xx * inv_rho - dS_dth * yy * inv_rho * inv_rho
+    gy = by + dS_drho * yy * inv_rho + dS_dth * xx * inv_rho * inv_rho
+    return s, gx, gy
 
 
 def _designed_slope(c, x, y):
@@ -867,15 +1153,23 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
 
     px = Px.reshape(1, 1, n)
     py = Py.reshape(1, 1, n)
+    telecentric, code = launch_mode(gen)
     x = (px * g(0) + g(2)).expand(W, F, n)
     y = (py * g(1) + g(3)).expand(W, F, n)
     z = g(4).expand(W, F, n)
-    dxr = px * g(8) - x
-    dyr = py * g(9) - y
-    dzr = g(5) - z
+    if telecentric:             # x1 = Px*B + x0 at the axial distance g5
+        dxr = (px * g(8)).expand(W, F, n)
+        dyr = (py * g(9)).expand(W, F, n)
+        dzr = g(5).expand(W, F, n)
+    else:
+        dxr = px * g(8) - x
+        dyr = py * g(9) - y
+        dzr = g(5) - z
     inv_mag = torch.reciprocal(_sqrt(dxr * dxr + dyr * dyr + dzr * dzr))
     L, M, N = dxr * inv_mag, dyr * inv_mag, dzr * inv_mag
-    inten = torch.ones_like(x)
+    weight = apod_weight(code, lambda j: g(12 + j).detach(), px, py)
+    inten = torch.ones_like(x) if weight is None else \
+        weight.expand(W, F, n).clone()
     opd = torch.zeros_like(x)
     opd_c = torch.zeros_like(x)
     valid = torch.ones_like(x, dtype=torch.bool)
@@ -1036,7 +1330,8 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
     if len(flags) != S or not 1 <= S <= MAX_SURFACES:
         raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
                          f"each, got {S} surfaces and {len(flags)} flags")
-    if any(n_coefs(f.gkind, f.nu, f.nv) > acoef.shape[1] for f in flags):
+    if any(acoef_width(f.gkind, f.nu, f.nv) > acoef.shape[1]
+           for f in flags):
         raise ValueError("acoef has fewer columns than a surface's terms")
     if not (1 <= F <= 65535 and 1 <= W <= 65535):
         raise ValueError("F and W must be in 1..65535")
@@ -1083,7 +1378,7 @@ gen_trace_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
                     Hx=0.0, Hy=0.0, final_prop: bool = False,
                     kahan: bool = False, opd_split: bool = False,
-                    keep_local_z: bool = False):
+                    keep_local_z: bool = False, apodization=None):
     """Fused generation + trace of the pupil samples (Px, Py) for the
     wavelength(s) and field point(s) given; the counterpart of
     ``pallas_gen_trace_conic``.
@@ -1103,7 +1398,9 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     (per wavelength: a scalar for a scalar wavelength, else [W]; the total
     OPD is base + deviation), computed here from the constants so that it
     is differentiable. Its z is global unless ``keep_local_z``, which keeps
-    it local to the image vertex.
+    it local to the image vertex. ``apodization``: one of the closed-form
+    profiles of ``system/apodization.py``, evaluated by the kernel on the
+    launch intensity.
 
     A scalar wavelength and scalar field return ``n`` rays; a field vector
     F*n rays (field-major); a wavelength vector W*F*n rays in (wavelength,
@@ -1117,7 +1414,8 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     if px.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 has no version for device {px.device}")
     flags = model_flags(model, params)
-    gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy)
+    gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy,
+                                    apodization)
     mode = "split" if opd_split else ("kahan" if kahan else "plain")
     if opd_split:
         consts = split_consts(params, gen, consts)

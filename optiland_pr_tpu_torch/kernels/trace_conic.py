@@ -7,7 +7,7 @@ image, K3 takes a ray bundle as it is (from ``trace.raygen.generate_rays``
 or any other source), runs each surface of the stack (validity starting
 true, the plain OPD sum), and returns the rays on the image surface, before
 the image thickness, with NaN in the state of the rays lost on the way. The
-surfaces are K1's: sub-slices (a), (b) and (c) but the Forbes sags
+surfaces are K1's: sub-slices (a), (b) and (c)
 (``gen_trace.supports_model``), one wavelength per call.
 
 The module holds
@@ -30,7 +30,8 @@ from ..core.rays import Rays
 from ..system.model import OpticModel
 from .gen_trace import (CONST_W, MAX_SURFACES, VARIANTS, SurfaceFlags,
                         _flag_words, _surface_plain, build_kernel,
-                        model_flags, n_coefs, pack_asphere_coeffs,
+                        acoef_width, model_flags, n_coefs,
+                        pack_asphere_coeffs,
                         pack_surface_constants, supports_model, zernike_table)
 
 __all__ = ["trace_plain", "trace_cuda", "trace_conic", "RAY_FIELDS"]
@@ -88,7 +89,8 @@ def trace_cuda(consts, acoef, rays, flags):
         raise ValueError(f"need 1..{MAX_SURFACES} surfaces with one flag "
                          f"each, got {S} surfaces and {len(flags)} flags")
     flags = [SurfaceFlags(*f) for f in flags]
-    if any(n_coefs(f.gkind, f.nu, f.nv) > acoef.shape[1] for f in flags):
+    if any(acoef_width(f.gkind, f.nu, f.nv) > acoef.shape[1]
+           for f in flags):
         raise ValueError("acoef has fewer columns than a surface's terms")
     n = rays.shape[1]
     out = torch.empty_like(rays)

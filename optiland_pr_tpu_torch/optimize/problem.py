@@ -74,15 +74,17 @@ class OptimizationProblem:
         result = OptimizerAdam(problem).optimize(n_steps=5)
 
     ``device`` and ``dtype`` pick the build of ``optic`` the problem works
-    on (default: the card, float64). Pickups and solves are not ported: an
-    optic that carries constraints is refused.
+    on (default: the card, float64). An optic that carries pickups or solves
+    is refused: ``Optic.build`` applies them, but re-applying them inside
+    the merit, so that gradients flow through them, is not ported yet.
     """
 
     def __init__(self, optic, device=None, dtype=None):
         if getattr(optic, "constraints", None):
             raise NotImplementedError(
-                "pickups and solves (system/constraints.py) are not ported "
-                "yet; this optic carries constraints")
+                "re-applying pickups and solves inside the merit "
+                "(system/constraints.py) is not ported yet; this optic "
+                "carries some")
         self.optic = optic
         self.device = resolve_device(device)
         self.dtype = dtype or default_float()

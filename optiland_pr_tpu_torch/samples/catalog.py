@@ -1,19 +1,22 @@
 """Sample systems beyond the all-conic objectives (port of the matching part
 of ``optiland_pr_tpu/samples/catalog.py``, with the same public
 prescriptions: the Hubble telescope, the aspheric singlet and the 25-surface
-objective of U.S. Patent 8,879,901), and the single-lens test systems of the
+objective of U.S. Patent 8,879,901 and the telecentric DUV projection lens
+of U.S. Patent 5,831,776), and the single-lens test systems of the
 JAX package's kernel suite (``tests/test_pallas_widened.py``): a tilted and
 decentered singlet, a coated singlet and an odd-asphere singlet."""
 from __future__ import annotations
 
 import math
 
+from ..materials import IdealMaterial
 from ..system.apertures import RadialAperture
 from ..system.coatings import SimpleCoating
 from ..system.optic import Optic
 
 __all__ = ["HubbleTelescope", "AsphericSinglet", "ObjectiveUS008879901",
-           "TiltedSinglet", "CoatedSinglet", "OddAsphereSinglet"]
+           "UVProjectionLens", "TiltedSinglet", "CoatedSinglet",
+           "OddAsphereSinglet"]
 
 inf = math.inf
 # the Fraunhofer F, d and C lines, d primary
@@ -90,6 +93,46 @@ def ObjectiveUS008879901() -> Optic:
         lens.add_field(y=y)
     for wl, primary in _FRAUNHOFER:
         lens.add_wavelength(value=wl, is_primary=primary)
+    return lens
+
+
+def UVProjectionLens() -> Optic:
+    """The 42-surface object-space telecentric DUV lithography lens of U.S.
+    Patent 5,831,776 (``optiland_pr_tpu/samples/catalog.py:175-210``):
+    fused silica as an ideal index at 0.248 um, object NA 0.133, object
+    heights 0, 32 and 48 mm, the image plane placed by ``image_solve``."""
+    sio2 = IdealMaterial(n=1.5084, k=0)
+    rows = [
+        (-737.7847, 27.484, 1), (-235.2891, 0.916, 0), (211.1786, 36.646, 1),
+        (-461.3986, 0.916, 0), (412.6778, 21.071, 1), (160.5391, 16.197, 0),
+        (-604.1283, 7.215, 1), (218.1877, 23.941, 0), (-3586.063, 11.978, 1),
+        (251.8168, 47.506, 0), (-85.2817, 11.961, 1), (584.8597, 9.968, 0),
+        (4074.801, 35.291, 1), (-162.0185, 0.923, 0), (629.544, 41.227, 1),
+        (-226.7397, 0.916, 0), (522.2739, 27.842, 1), (-582.424, 0.916, 0),
+        (423.729, 22.904, 1), (-1385.36, 0.916, 0), (212.039, 33.646, 1),
+        (802.3695, 55.304, 0), (-776.5697, 8.703, 1), (106.1728, 24.09, 0),
+        (-200.683, 11.452, 1), (311.8264, 59.54, 0), (-77.2276, 11.772, 1),
+        (2317.8032, 11.862, 0), (-290.8859, 22.904, 1), (-148.3577, 1.373, 0),
+        (-5658.5043, 41.227, 1), (-151.9858, 0.916, 0), (678.1005, 32.981, 1),
+        (-358.554, 0.916, 0), (264.2734, 32.814, 1), (2309.6884, 0.916, 0),
+        (171.2681, 29.015, 1), (364.7765, 0.918, 0), (113.37, 76.259, 1),
+        (78.6982, 54.304, 0), (49.5443, 18.65, 1), (109.8136, 13.07647896, 0),
+    ]
+    lens = Optic(name="UV Projection Lens")
+    lens.add_surface(index=0, radius=inf, thickness=110.85883544)
+    for i, (radius, thickness, is_glass) in enumerate(rows, start=1):
+        lens.add_surface(index=i, radius=radius, thickness=thickness,
+                         material=sio2 if is_glass else None,
+                         is_stop=(i == 20))
+    lens.add_surface(index=43, radius=inf)
+    lens.set_aperture(aperture_type="objectNA", value=0.133)
+    lens.set_field_type(field_type="object_height")
+    lens.add_field(y=0)
+    lens.add_field(y=32)
+    lens.add_field(y=48)
+    lens.add_wavelength(value=0.248, is_primary=True)
+    lens.obj_space_telecentric = True
+    lens.image_solve()
     return lens
 
 

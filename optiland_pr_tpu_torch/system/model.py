@@ -1,9 +1,9 @@
 """Static system description (port of ``optiland_pr_tpu/system/model.py``).
 
 - ``OpticModel`` / ``SurfaceDef``: static structure (geometry types, material
-  models, stop index, field and wavelength counts). Every surface refracts or
-  reflects; thin-lens, grating and phase interactions, polarization and
-  telecentric launches come with later slices.
+  models, stop index, field and wavelength counts, an object-space
+  telecentric launch). Every surface refracts or reflects; thin-lens,
+  grating and phase interactions and polarization come with later slices.
 - the parameter tree: every number (radii, conics, asphere coefficients,
   thicknesses, material data, aperture extents, coating factors, tilts and
   decenters, field coordinates, wavelengths) as tensors, so autograd flows
@@ -53,6 +53,7 @@ class OpticModel:
     num_fields: int = 0
     num_wavelengths: int = 0
     primary_wavelength_idx: int = 0
+    obj_space_telecentric: bool = False
     _object_infinite: bool = True
 
     @property

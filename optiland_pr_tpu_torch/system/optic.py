@@ -1,7 +1,9 @@
 """The user-facing system builder (port of ``optiland_pr_tpu/system/optic.py``
 for standard, plane, even/odd aspheric, XY-polynomial, Chebyshev, biconic,
-toroidal, Zernike and thin Fresnel surfaces that refract or reflect, with
-radial apertures, simple coatings and tilts/decenters).
+toroidal, Zernike, Forbes Qbfs/Q2D and thin Fresnel surfaces that refract
+or reflect, with
+radial apertures, simple coatings and tilts/decenters), with pickups and
+solves, an object-space telecentric launch and a pupil apodization.
 
 ``Optic`` is a mutable host-side builder; ``build(device, dtype)`` compiles it
 into a static ``OpticModel`` and a parameter tree of tensors on ``device``.
@@ -12,13 +14,14 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..config import default_float, resolve_device
 from ..core.distributions import generate_distribution
-from ..geometry import (Biconic, ChebyshevSag, EvenAsphere,
-                        FresnelDesignedSag, FresnelZoneSag, OddAsphere,
-                        Plane, PolynomialXY, StandardGeometry, Toroidal,
-                        ZernikeSag)
+from ..geometry import (Biconic, ChebyshevSag, EvenAsphere, ForbesQ2d,
+                        ForbesQbfs, FresnelDesignedSag, FresnelZoneSag,
+                        OddAsphere, Plane, PolynomialXY, StandardGeometry,
+                        Toroidal, ZernikeSag)
 from ..materials import resolve_material
 from ..materials.base import Mirror
 from ..trace.paraxial import Paraxial
@@ -44,6 +47,10 @@ _GEOMETRY_BUILDERS = {
                                      kw.get("zernike_type", "standard")),
     "fresnel_zone": lambda kw: FresnelZoneSag(),
     "fresnel_designed": lambda kw: FresnelDesignedSag(),
+    "forbes_qbfs": lambda kw: ForbesQbfs(
+        len(kw.get("coefficients") or [])
+        or (max(kw.get("radial_terms", {0: 0}).keys()) + 1)),
+    "forbes_q2d": lambda kw: ForbesQ2d(tuple(kw["terms"])),
 }
 
 
@@ -77,6 +84,9 @@ class Optic:
         self.fields: list[tuple] = []       # (x, y, vx, vy)
         self.wavelengths: list[float] = []
         self.primary_wavelength_idx: int = 0
+        self.apodization = None         # callable (Px, Py) -> intensity
+        self.constraints: list = []     # pickups and solves
+        self._telecentric = False
         self._cache: dict = {}
 
     # ------------------------------------------------------------------
@@ -94,9 +104,11 @@ class Optic:
         coefficient grid, Chebyshev with ``norm_x``/``norm_y``), ``biconic``
         (``radius_x``, ``conic_x``), ``toroidal`` (``radius_rot``,
         ``coeffs_poly_y``), ``zernike`` (``coefficients``, ``zernike_type``,
-        ``norm_radius``), ``fresnel_zone`` (``zone_depth``) and
-        ``fresnel_designed`` (``focal_length``, ``n_design``); others raise at
-        ``build``. ``coating`` is a ``CoatingDef`` or ``"fresnel"``."""
+        ``norm_radius``), ``forbes_qbfs`` (``coefficients`` or
+        ``radial_terms``, ``norm_radius``), ``forbes_q2d`` (``terms``,
+        ``coefficients``, ``norm_radius``), ``fresnel_zone`` (``zone_depth``)
+        and ``fresnel_designed`` (``focal_length``, ``n_design``); others
+        raise at ``build``. ``coating`` is a ``CoatingDef`` or ``"fresnel"``."""
         entry = dict(surface_type=surface_type, radius=radius,
                      thickness=thickness, conic=conic, material=material,
                      is_stop=is_stop, comment=comment, dx=dx, dy=dy, dz=dz,
@@ -137,6 +149,55 @@ class Optic:
             self.primary_wavelength_idx = len(self.wavelengths) - 1
         self._dirty()
 
+    @property
+    def obj_space_telecentric(self) -> bool:
+        """An object-space telecentric launch: every ray leaves the object
+        parallel to the axis's chief direction (the JAX sample sets it as
+        a plain attribute after adding the surfaces; setting it drops every
+        cached build)."""
+        return self._telecentric
+
+    @obj_space_telecentric.setter
+    def obj_space_telecentric(self, value: bool):
+        self._telecentric = bool(value)
+        self._dirty()
+
+    def set_apodization(self, apodization):
+        """The pupil apodization applied at ray generation
+        (``system/apodization.py``)."""
+        self.apodization = apodization
+        self._dirty()
+
+    def image_solve(self):
+        """Move the image plane to the paraxial focus: the marginal ray's
+        height 0 at the image."""
+        self.add_solve("marginal_ray_height",
+                       surface_idx=len(self._surfaces) - 1, height=0.0)
+
+    def add_pickup(self, source_surface_idx, attr_type, target_surface_idx,
+                   scale=1.0, offset=0.0):
+        """target.attr = scale * source.attr + offset at every build."""
+        from .constraints import Pickup
+        self.constraints.append(Pickup(source_surface_idx, attr_type,
+                                       target_surface_idx, scale, offset))
+        self._dirty()
+
+    def add_solve(self, solve_type, surface_idx=None, height=0.0, **kw):
+        """A solve applied at every build: ``marginal_ray_height``,
+        ``chief_ray_height`` or ``quick_focus``."""
+        from .constraints import (ChiefRayHeightSolve, MarginalRayHeightSolve,
+                                  QuickFocusSolve)
+        if solve_type == "marginal_ray_height":
+            c = MarginalRayHeightSolve(surface_idx, height)
+        elif solve_type == "chief_ray_height":
+            c = ChiefRayHeightSolve(surface_idx, height)
+        elif solve_type == "quick_focus":
+            c = QuickFocusSolve(**kw)
+        else:
+            raise ValueError(f"unknown solve type {solve_type}")
+        self.constraints.append(c)
+        self._dirty()
+
     # -- prescription edits -------------------------------------------------
     def set_radius(self, value, surface_number: int):
         self._surfaces[surface_number]["radius"] = float(value)
@@ -164,7 +225,7 @@ class Optic:
         self._dirty()
 
     def set_norm_radius(self, value, surface_number: int):
-        """Set the normalization radius of a Zernike surface."""
+        """Set the normalization radius of a Zernike or Forbes surface."""
         self._surfaces[surface_number]["geom_kw"]["norm_radius"] = \
             float(value)
         self._dirty()
@@ -197,7 +258,9 @@ class Optic:
     def build(self, device=None, dtype=None):
         """Compile to (OpticModel, params) with every parameter a tensor of
         ``dtype`` (default float64) on ``device`` (default: the card,
-        ``config.default_device()``; pass ``device="cpu"`` for the CPU)."""
+        ``config.default_device()``; pass ``device="cpu"`` for the CPU).
+        Pickups and solves are applied to the float64 tree on the host
+        first, so every device and dtype gets the same solved values."""
         dtype = dtype or default_float()
         device = resolve_device(device)
         key = self.cache_key(device, dtype)
@@ -261,6 +324,7 @@ class Optic:
             field_type=self.field_type, num_fields=len(self.fields),
             num_wavelengths=len(self.wavelengths),
             primary_wavelength_idx=self.primary_wavelength_idx,
+            obj_space_telecentric=self._telecentric,
             _object_infinite=host_isinf(self._surfaces[0]["thickness"]))
         host = {
             "surfaces": sparams,
@@ -271,6 +335,11 @@ class Optic:
                               or [(0., 0.)], np.float64),
             "wavelengths": np.asarray(self.wavelengths or [0.55], np.float64),
         }
+        if self.constraints:
+            from .constraints import apply_constraints
+            host = apply_constraints(
+                model, params_from_numpy(host, "cpu", torch.float64),
+                self.constraints)
         self._cache[key] = (model, params_from_numpy(host, device, dtype))
         return self._cache[key]
 
@@ -302,9 +371,9 @@ class Optic:
               distribution: str = "hexapolar", engine: str = "auto",
               device=None, dtype=None):
         """Trace a pupil distribution at one field point and wavelength to
-        the image on ``device`` (default: the card). ``engine``: "auto" (K1
-        on a CUDA device when eligible, else eager), "eager" or "kernel"
-        (raise if ineligible)."""
+        the image on ``device`` (default: the card), with the optic's
+        apodization. ``engine``: "auto" (K1 on a CUDA device when eligible,
+        else eager), "eager" or "kernel" (raise if ineligible)."""
         from ..trace.engine import final_rays
         model, params = self.build(device, dtype)
         wavelength = wavelength or self.primary_wavelength
@@ -312,4 +381,5 @@ class Optic:
         Px, Py = generate_distribution(distribution, num_rays,
                                        dtype=ref.dtype, device=ref.device)
         return final_rays(model, params, Hx, Hy, wavelength, Px, Py,
-                          final_prop=True, engine=engine)
+                          final_prop=True, engine=engine,
+                          apodization=self.apodization)

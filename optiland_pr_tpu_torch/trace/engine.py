@@ -2,10 +2,10 @@
 (port of ``optiland_pr_tpu/trace/engine.py``).
 
 Every spot, operand and analysis call asks ``final_rays`` for the final ray
-state. Eligible systems are those ``supports_model`` accepts: conic, plane
-and even/odd aspheric surfaces, tilted or not, with radial or offset-radial
-apertures and simple coatings (the Hubble telescope and the aspheric singlet
-among them). On a CUDA device, ``"auto"`` sends every eligible call to the
+state. Eligible systems are those ``supports_model`` and ``gen_eligible``
+accept (the ported surfaces and launch modes, the telecentric one among
+them), traced without apodization or with one of the seven closed-form
+profiles, which K1 evaluates itself. On a CUDA device, ``"auto"`` sends every eligible call to the
 K1 kernel (``kernels/gen_trace.py``), whose gradient is the K2 kernel
 (``kernels/gen_grad.py``): a merit's gradient through such a call runs K2
 on the card, never the eager trace. Everything else runs the eager trace
@@ -24,6 +24,7 @@ import torch
 
 from ..kernels.gen_trace import (gen_eligible, gen_trace_conic, ndim,
                                  supports_model)
+from ..system.apodization import kernel_apodization
 from . import real as real_trace
 
 __all__ = ["final_rays", "kernel_eligible", "set_engine", "engine_override",
@@ -54,9 +55,9 @@ def engine_override(mode: str | None):
 def kernel_eligible(model, Hx, Hy, apodization=None) -> bool:
     """Static eligibility of a (system, call) for K1 (the counterpart of
     ``pallas_eligible``): a supported surface stack and launch mode, field
-    coordinates that are scalars or 1-D, and no apodization (a later
-    sub-slice)."""
-    if apodization is not None:
+    coordinates that are scalars or 1-D, and no apodization or a
+    closed-form one."""
+    if not kernel_apodization(apodization):
         return False
     if ndim(Hx) > 1 or ndim(Hy) > 1:
         return False
@@ -79,21 +80,27 @@ def resolve_engine(model, Hx, Hy, device, mode: str = "auto",
 
 
 def final_rays(model, params, Hx, Hy, wavelength, Px, Py, *,
-               final_prop: bool = True, engine: str = "auto"):
+               final_prop: bool = True, engine: str = "auto",
+               apodization=None):
     """Final-surface ray state via the engine the mode selects.
 
     ``wavelength`` is a scalar (len(Px) rays per field) or a 1-D tensor of W
-    wavelengths (W*F*len(Px) rays, wavelength-major, in both engines)."""
+    wavelengths (W*F*len(Px) rays, wavelength-major, in both engines);
+    ``apodization`` weighs the launch intensity."""
     mode = _FORCE or engine
-    if resolve_engine(model, Hx, Hy, Px.device, mode) == "kernel":
+    if resolve_engine(model, Hx, Hy, Px.device, mode,
+                      apodization) == "kernel":
         return gen_trace_conic(model, params, Px, Py, wavelength, Hx=Hx,
-                               Hy=Hy, final_prop=final_prop)
+                               Hy=Hy, final_prop=final_prop,
+                               apodization=apodization)
     wl = torch.as_tensor(wavelength, dtype=Px.dtype, device=Px.device)
     if wl.ndim == 0:
         return real_trace.trace(model, params, Hx, Hy, wl, Px, Py,
-                                final_prop=final_prop)
+                                final_prop=final_prop,
+                                apodization=apodization)
     per_wl = [real_trace.trace(model, params, Hx, Hy, w, Px, Py,
-                               final_prop=final_prop) for w in wl]
+                               final_prop=final_prop,
+                               apodization=apodization) for w in wl]
     return type(per_wl[0])(**{
         f: torch.cat([getattr(r, f).reshape(-1) for r in per_wl])
         for f in per_wl[0].__dataclass_fields__})

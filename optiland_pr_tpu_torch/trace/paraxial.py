@@ -1,6 +1,7 @@
 """Paraxial y-u trace and first-order system properties
-(port of ``optiland_pr_tpu/trace/paraxial.py``: EPD, EPL, XPL, f2 and FNO,
-without the GRIN gaps).
+(port of ``optiland_pr_tpu/trace/paraxial.py``: EPD, EPL, XPL, f2, FNO
+and the marginal and chief rays that the solves read, without the GRIN
+gaps).
 
 Every quantity is a differentiable function of (model, params); the surface
 loop is a Python loop over a handful of scalars.
@@ -135,3 +136,51 @@ class Paraxial:
         if self.model.ap_type == "imageFNO":
             return self.params["aperture_value"]
         return self.f2() / self.EPD()
+
+    def marginal_ray(self):
+        """(heights, slopes) of the marginal ray, one row per surface."""
+        EPD = self.EPD()
+        pos = self._pos()
+        if self.model._object_infinite:
+            ya, ua = EPD / 2.0, 0.0
+            obj_z = pos[1] - 10.0
+        else:
+            obj_z = pos[0]
+            ya, ua = 0.0, EPD / (2.0 * (self.EPL() - obj_z))
+        return self._trace(ya, ua, obj_z)
+
+    def chief_ray(self):
+        """(heights, slopes) of the chief ray of the largest y field: a unit
+        ray from the stop traced both ways, scaled to the field."""
+        m = self.model
+        stop_index = m.stop_index
+        pos = self._pos()
+        y_fwd, _ = self._trace(0.0, 0.1, pos[stop_index], skip=stop_index)
+        y_img_unit = y_fwd[-1]
+        y_rev, u_rev = self._trace(0.0, 0.1, pos[-1] - pos[stop_index],
+                                   reverse=True,
+                                   skip=m.num_surfaces - stop_index)
+        y_obj_unit, u_obj_unit = y_rev[-1], u_rev[-1]
+        scaling = self._scale_chief_ray(y_obj_unit, u_obj_unit, y_img_unit)
+        if m.field_type == "paraxial_image_height":
+            y_obj_start = y_obj_unit * scaling
+        else:
+            y_obj_start = -(y_obj_unit * scaling)
+        u_obj_start = u_obj_unit * scaling
+        if m._object_infinite:
+            z1 = pos[1]
+            y1 = u_obj_start * (z1 - self.EPL())
+            return self._trace(y1, u_obj_start, z1)
+        return self._trace(y_obj_start, u_obj_start, pos[0])
+
+    def _scale_chief_ray(self, y_obj_unit, u_obj_unit, y_img_unit):
+        """The unit chief ray's scale for the field type."""
+        m = self.model
+        max_y_field = torch.max(torch.abs(self.params["fields"][:, 1]))
+        if m.field_type == "angle":
+            return torch.tan(torch.deg2rad(max_y_field)) / u_obj_unit
+        if m.field_type == "object_height":
+            return max_y_field / y_obj_unit
+        if m.field_type == "paraxial_image_height":
+            return max_y_field / y_img_unit
+        raise ValueError(f"unknown field type {m.field_type}")

@@ -131,8 +131,12 @@ def _ray_origins(model: OpticModel, params, par: Paraxial, Hx, Hy, Px, Py,
 
 
 def generate_rays(model: OpticModel, params, Hx, Hy, Px, Py,
-                  wavelength) -> Rays:
-    """Launch rays aimed at the entrance pupil."""
+                  wavelength, apodization=None) -> Rays:
+    """Launch rays aimed at the entrance pupil, or for an object-space
+    telecentric system parallel to the axis from each object point's pupil
+    sample, at the axial distance sqrt(1 - sin_u^2) / sin_u with sin_u the
+    object NA; ``apodization`` (a callable of (Px, Py)) sets the launch
+    intensity."""
     par = Paraxial(model, params)
     dt, dev = Px.dtype, Px.device
     Hx = torch.as_tensor(Hx, dtype=dt, device=dev)
@@ -142,11 +146,18 @@ def generate_rays(model: OpticModel, params, Hx, Hy, Px, Py,
     vy = 1.0 - vyf
     x0, y0, z0 = _ray_origins(model, params, par, Hx, Hy, Px, Py, vx, vy)
 
-    EPL = par.EPL()
-    EPD = par.EPD()
-    x1 = Px * EPD * vx / 2
-    y1 = Py * EPD * vy / 2
-    z1 = EPL.expand(Px.shape)
+    if model.obj_space_telecentric:
+        sin_u = params["aperture_value"]
+        z = torch.sqrt(1 - sin_u**2) / sin_u + z0
+        x1 = Px * vx + x0
+        y1 = Py * vy + y0
+        z1 = z.expand(Px.shape)
+    else:
+        EPL = par.EPL()
+        EPD = par.EPD()
+        x1 = Px * EPD * vx / 2
+        y1 = Py * EPD * vy / 2
+        z1 = EPL.expand(Px.shape)
 
     mag = torch.sqrt((x1 - x0) ** 2 + (y1 - y0) ** 2 + (z1 - z0) ** 2)
     is_zero = mag < 1e-9
@@ -154,6 +165,8 @@ def generate_rays(model: OpticModel, params, Hx, Hy, Px, Py,
     L = torch.where(is_zero, 0.0, (x1 - x0) / mag)
     M = torch.where(is_zero, 0.0, (y1 - y0) / mag)
     N = torch.where(is_zero, 1.0, (z1 - z0) / mag)
+    intensity = torch.ones_like(Px) if apodization is None \
+        else apodization(Px, Py)
     wl = torch.as_tensor(wavelength, dtype=dt, device=dev).expand(Px.shape)
-    return new_rays(x0, y0, z0, L, M, N, intensity=torch.ones_like(Px),
+    return new_rays(x0, y0, z0, L, M, N, intensity=intensity,
                     wavelength=wl, dtype=dt, device=dev)

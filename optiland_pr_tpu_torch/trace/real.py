@@ -132,12 +132,13 @@ def _final_image_propagation(params, rays):
 
 
 def trace(model: OpticModel, params, Hx, Hy, wavelength, Px, Py,
-          final_prop: bool = True):
+          final_prop: bool = True, apodization=None):
     """Launch, trace and propagate to the image.
 
     Hx/Hy are scalars or [F] tensors; Px/Py are [P] pupil samples. Rays are
     field-major: ray i*P+j is field i, pupil point j. ``wavelength`` is a
-    scalar."""
+    scalar; ``apodization`` a callable of (Px, Py) for the launch
+    intensity."""
     dt, dev = Px.dtype, Px.device
     Hx = torch.atleast_1d(torch.as_tensor(Hx, dtype=dt, device=dev))
     Hy = torch.atleast_1d(torch.as_tensor(Hy, dtype=dt, device=dev))
@@ -146,7 +147,7 @@ def trace(model: OpticModel, params, Hx, Hy, wavelength, Px, Py,
     F = Hx.shape[0]
     rays = generate_rays(model, params, Hx.repeat_interleave(P),
                          Hy.repeat_interleave(P), Px.repeat(F), Py.repeat(F),
-                         wavelength)
+                         wavelength, apodization=apodization)
     wl = torch.as_tensor(wavelength, dtype=dt, device=dev)
     rays = trace_system(model, params, rays, wl_scalar=wl)
     if final_prop:

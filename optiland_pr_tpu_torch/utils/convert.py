@@ -3,13 +3,17 @@
 ``Optic.build()`` in both packages produces the same nested structure: a dict
 with a ``surfaces`` list of per-surface dicts and the system arrays
 (``aperture_value``, ``fields``, ``vig``, ``wavelengths``). A surface's dict
-holds its thickness, its ``geom`` leaves (radius, conic and an asphere's
-``coefficients`` array), its ``material`` leaves and, where the surface has
-them, its ``aperture`` extents and offsets, its ``coating`` factors and its
-``cs`` tilts and decenters. This module turns a host copy of such a tree
-(numpy arrays and Python numbers, e.g. the JAX tree mapped with
-``np.asarray``) into tensors and back; it carries weights between the two
-packages, leaf for leaf.
+holds its thickness (solved by ``Optic.build``'s pickups and solves,
+e.g. ``image_solve``), its ``geom`` leaves (radius, conic and a sag's own leaves:
+an asphere's, a freeform's or a Forbes surface's ``coefficients`` and
+``norm_radius``), its ``material`` leaves and, where the surface has them,
+its ``aperture`` extents and offsets, its ``coating`` factors and its ``cs``
+tilts and decenters. This module turns a host copy of such a tree (numpy
+arrays and Python numbers, e.g. the JAX tree mapped with ``np.asarray``)
+into tensors and back; it carries weights between the two packages, leaf
+for leaf. Structure is not in the tree: a telecentric launch is the model's
+``obj_space_telecentric``, which the same prescription built in the port
+sets.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ import optiland_pr_tpu_torch.samples as tsamples
 from optiland_pr_tpu.system import apertures as japertures
 from optiland_pr_tpu.system import coatings as jcoatings
 from optiland_pr_tpu.system.optic import Optic as JOptic
-from optiland_pr_tpu_torch.kernels.gen_trace import SurfaceFlags
+from optiland_pr_tpu_torch.kernels.gen_trace import SurfaceFlags, _q2d_count
 from optiland_pr_tpu_torch.system import apertures as tapertures
 from optiland_pr_tpu_torch.system import coatings as tcoatings
 from optiland_pr_tpu_torch.system.optic import Optic as TOptic
@@ -166,7 +166,10 @@ def _thin_lenses(optic, name, faces):
 
 def _fresnel_stack(optic):
     """Both thin Fresnel kinds: a zoned lens on the front of an N-BK7 plate
-    whose exit face is a designed Fresnel lens, fields 0 and 2 degrees."""
+    whose exit face is a designed Fresnel lens; then both Forbes kinds: a
+    lens with a three-term Qbfs front and a Q2D back whose m = 1 cosine
+    group has four terms (the readout's -2/5 al_3 term), fields 0 and 2
+    degrees."""
     lens = optic(name="Fresnel stack")
     lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
     lens.add_surface(index=1, radius=200.0, conic=-0.5, thickness=5.0,
@@ -174,13 +177,42 @@ def _fresnel_stack(optic):
                      surface_type="fresnel_zone", zone_depth=0.5)
     lens.add_surface(index=2, surface_type="fresnel_designed",
                      focal_length=150.0, n_design=1.5168, zone_depth=0.5,
-                     thickness=100.0)
-    lens.add_surface(index=3)
+                     thickness=3.0)
+    lens.add_surface(index=3, radius=90.0, conic=-0.3, thickness=5.0,
+                     material="N-BK7", surface_type="forbes_qbfs",
+                     norm_radius=12.0, coefficients=[8e-4, -4e-4, 1.5e-4])
+    lens.add_surface(index=4, radius=-200.0, thickness=90.0,
+                     surface_type="forbes_q2d", norm_radius=12.0,
+                     terms=((0, 0), (1, 0), (0, 1), (1, 1), (2, 1), (3, 1),
+                            (0, 2), (0, -3)),
+                     coefficients=[6e-4, -3e-4, 2e-4, -1e-4, 8e-5, -5e-5,
+                                   1.5e-4, 1e-4])
+    lens.add_surface(index=5)
     lens.set_aperture(aperture_type="EPD", value=20.0)
     lens.set_field_type(field_type="angle")
     lens.add_field(y=0)
     lens.add_field(y=2)
     lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
+def _telecentric_singlet(optic):
+    """An object-space telecentric N-BK7 singlet at a finite object: object
+    NA 0.1, object heights 0 and 5 mm, 0.55 um, the image plane placed by
+    ``image_solve``; the small system of the launch-mode kernel checks."""
+    lens = optic(name="telecentric singlet")
+    lens.add_surface(index=0, radius=math.inf, thickness=80.0)
+    lens.add_surface(index=1, radius=60.0, thickness=8.0, material="N-BK7",
+                     is_stop=True)
+    lens.add_surface(index=2, radius=-90.0, thickness=60.0)
+    lens.add_surface(index=3)
+    lens.set_aperture(aperture_type="objectNA", value=0.1)
+    lens.set_field_type(field_type="object_height")
+    lens.add_field(y=0.0)
+    lens.add_field(y=5.0)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    lens.obj_space_telecentric = True
+    lens.image_solve()
     return lens
 
 
@@ -237,6 +269,9 @@ def builders(name):
         return jax_combined, torch_combined
     if name == "Singlet":
         return (lambda: _singlet(JOptic)), (lambda: _singlet(TOptic))
+    if name == "TelecentricSinglet":
+        return ((lambda: _telecentric_singlet(JOptic)),
+                (lambda: _telecentric_singlet(TOptic)))
     if name == "TiltedImageSinglet":
         return ((lambda: _tilted_image_singlet(JOptic)),
                 (lambda: _tilted_image_singlet(TOptic)))
@@ -250,8 +285,14 @@ def jax_flags_as_port(flags) -> tuple:
     nu, nv, has_cs, has_ap, coat, gextra, inter) as the port's: the fields
     of the ported sub-slices, (is_plane, is_refl, absorbing, gkind, nu,
     has_cs, has_ap, coat, nv, gextra)."""
-    return tuple(SurfaceFlags(f[0], f[1], f[2], f[3], f[4], f[6], f[7], f[8],
-                              f[5], f[9]) for f in flags)
+    return tuple(SurfaceFlags(f[0], f[1], f[2], f[3], _port_nu(f), f[6], f[7],
+                              f[8], f[5], f[9]) for f in flags)
+
+
+def _port_nu(f):
+    """The port's nu of a JAX flag tuple: a Q2D surface counts its
+    basis-changed coefficients (the JAX package its (n, m) terms)."""
+    return _q2d_count(f[9]) if f[3] == "q2d" else f[4]
 
 
 class _Captured(Exception):

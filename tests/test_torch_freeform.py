@@ -1,13 +1,15 @@
-"""The port's freeform and Fresnel sags (K1/K2 sub-slice (c) but the Forbes
-sags) against the JAX package, on the CPU: the XY polynomial, Chebyshev,
-biconic, toroidal (finite and infinite rotation radius), Zernike (standard,
-fringe and Noll) and the two thin Fresnel surfaces, in the geometries, the
-builder, the eager trace, K1/K2's plain versions and the optimizer.
+"""The port's freeform and Fresnel sags (K1/K2 sub-slice (c)) against the
+JAX package, on the CPU: the XY polynomial, Chebyshev, biconic, toroidal
+(finite and infinite rotation radius), Zernike (standard, fringe and Noll),
+the Forbes Qbfs and Q2D and the two thin Fresnel surfaces, in the
+geometries, ``Optic``, the eager trace, K1/K2's plain versions and the
+optimizer.
 
 Systems (``tests/_torch_systems.py``): the JAX kernel suite's freeform
-singlets (tests/test_pallas_widened.py:280-312), the JAX bench's Chebyshev
-and Zernike singlets, the 1.5 m zoned concentrator, a stack of three Newton
-sags and a stack of both Fresnel kinds.
+singlets (tests/test_pallas_widened.py:280-312, the Forbes ones among them),
+the JAX bench's Chebyshev and Zernike singlets, the 1.5 m zoned
+concentrator, a stack of three Newton sags and a stack of both Fresnel
+kinds and both Forbes kinds.
 
 Tolerances:
 - geometry sags and slopes, float64 against float64: rtol 1e-10 with atol
@@ -22,6 +24,9 @@ Tolerances:
 - autograd through K1's plain version against the Pallas K2 in interpret
   mode: rtol 5e-3 with atol 5e-3 x max|g| (tests/test_pallas_grad.py:
   132-148, ``north_star_sags``);
+- the Forbes coefficients through the basis change, float32 products of
+  float32 matrices in another summation order: rtol 1e-6 (the other sags'
+  coefficients equal);
 - the Zernike sag of K1's plain version against the JAX geometry, float64:
   rtol 1e-10 with atol 1e-13;
 - the optimization problem, float64: value rtol 1e-8, gradient rtol 1e-6
@@ -158,7 +163,7 @@ def test_flag_word_layout_matches_the_cuda_header():
                re.finditer(r"#define (\w+) (\d+)\b", text)}
     for name in ("GKIND_SHIFT", "NU_SHIFT", "NV_SHIFT", "BASIS_SHIFT",
                  "GKIND_MASK", "NTERM_MASK", "BASIS_MASK", "ZT_W",
-                 "MAX_TERMS", "NEWTON_ITERS"):
+                 "MAX_TERMS", "NEWTON_ITERS", "Q2D_ROWS"):
         assert defines[name] == getattr(tgt, name), name
     enums = {m.group(1): int(m.group(2)) for m in
              re.finditer(r"\b(GK_\w+|FLAG_\w+) = (\d+)", text)}
@@ -167,7 +172,8 @@ def test_flag_word_layout_matches_the_cuda_header():
                   "biconic": "GK_BICONIC", "toroidal": "GK_TORUS",
                   "toroidal_inf": "GK_TORUS_INF", "zernike": "GK_ZERNIKE",
                   "fresnel_zone": "GK_FZONE",
-                  "fresnel_designed": "GK_FDESIGNED"}
+                  "fresnel_designed": "GK_FDESIGNED", "qbfs": "GK_QBFS",
+                  "q2d": "GK_Q2D"}
     assert {k: enums[v] for k, v in cuda_kinds.items()} == tgt._GKIND_CODES
     for flag in ("PLANE", "REFL", "ABSORB", "CS", "AP", "COAT"):
         assert enums[f"FLAG_{flag}"] == getattr(tgt, f"FLAG_{flag}"), flag
@@ -208,6 +214,38 @@ def test_zernike_table_holds_the_term_structure():
                 np.asarray(radial, np.float64).ravel().astype(np.float32))
 
 
+def test_q2d_term_structure_and_limits():
+    """A Q2D surface's kernel rows (``q2d_structure``): its basis-changed
+    coefficients grouped as the JAX kernel's ``_q2d_layout`` groups the
+    terms, each with its group's code and the Pnm recurrence's a(n, m),
+    b(n, m), c(n + 1, m) (the JAX package's ``_abc_q2d``); acoef carries
+    them after the coefficients. Beyond MAX_TERMS basis-changed
+    coefficients a Q2D surface is refused by supports_model and by the
+    flag word."""
+    from optiland_pr_tpu.geometry.forbes import _abc_q2d
+    terms = ((0, 0), (1, 0), (0, 1), (1, 1), (2, 1), (3, 1), (0, 2), (0, -3))
+    assert tgt.q2d_layout(terms) == jpt._q2d_layout(terms)
+    codes, a, b, c = tgt.q2d_structure(terms)
+    assert codes == (0, 0, 2, 2, 2, 2, 4, 7)
+    for j, (m, n, ln) in enumerate([(1, 0, 4), (1, 1, 4), (1, 2, 4)], 2):
+        assert (a[j], b[j]) == tuple(_abc_q2d(n, m)[:2])
+        assert c[j] == (_abc_q2d(n + 1, m)[2] if n < ln - 2 else 0.0)
+    assert a[5] == b[5] == c[5] == 0.0          # the group's last term
+    _, tb = freeform_builders("fresnel_stack")
+    model, params = tb().build(device="cpu", dtype=F32)
+    acoef = tgt.pack_asphere_coeffs(model, params)
+    np.testing.assert_array_equal(acoef[3, 8:40].numpy(), np.float32(
+        np.ravel([codes, a, b, c])))
+    wide = tuple((n, 1) for n in range(33))
+    lens = freeform_builders("singlet:q2d")[1]()
+    lens._surfaces[1]["geom_kw"].update(terms=wide, coefficients=[1e-6] * 33)
+    assert not tgt.supports_model(lens.build(device="cpu")[0])
+    flag = tgt.SurfaceFlags(False, False, False, "q2d", 33, False, False,
+                            "none", 0, wide)
+    with pytest.raises(ValueError):
+        tgt._flag_words([flag])
+
+
 @pytest.mark.parametrize("name,variables", [
     ("newton_stack", [("chebyshev_coeff", 1, {"coeff_index": (0, 1)}),
                       ("chebyshev_coeff", 1, {"coeff_index": [2, 1]}),
@@ -215,18 +253,23 @@ def test_zernike_table_holds_the_term_structure():
                       ("zernike_coeff", 2, {"coeff_number": 3}),
                       ("norm_radius", 2, {})]),
     ("singlet:poly", [("polynomial_coeff", 1, {"coeff_index": (1, 1)}),
-                      ("polynomial_coeff", 1, {"coeff_index": (3, 3)})])])
+                      ("polynomial_coeff", 1, {"coeff_index": (3, 3)})]),
+    ("singlet:q2d", [("asphere_coeff", 1, {"coeff_number": 2}),
+                     ("asphere_coeff", 1, {"coeff_number": 5}),
+                     ("norm_radius", 1, {})])])
 def test_builder_and_freeform_variables_match_jax(name, variables):
     """set_norm_radius, and the polynomial_coeff, chebyshev_coeff,
-    zernike_coeff, norm_radius, norm_x and norm_y variables read and write
-    the JAX package's leaves."""
+    zernike_coeff, norm_radius, norm_x and norm_y variables, and the
+    coefficient variable on a Forbes surface's ``geom.coefficients``, read
+    and write the JAX package's leaves."""
     jb, tb = freeform_builders(name)
     jlens, tlens = jb(), tb()
-    if name == "newton_stack":
+    if name in ("newton_stack", "singlet:q2d"):
+        k = 2 if name == "newton_stack" else 1
         for lens in (jlens, tlens):
-            lens.set_norm_radius(9.0, 2)
+            lens.set_norm_radius(9.0, k)
         _, tp = tlens.build(device="cpu")
-        assert float(tp["surfaces"][2]["geom"]["norm_radius"]) == 9.0
+        assert float(tp["surfaces"][k]["geom"]["norm_radius"]) == 9.0
     problems = []
     for opt, lens, kw in ((jopt, jlens, {}), (topt, tlens, {"device": "cpu"})):
         p = opt.OptimizationProblem(lens, **kw)
@@ -262,6 +305,11 @@ def test_eager_trace_and_plain_k1_match_jax(name):
     tm, tp = tb().build(device="cpu", dtype=F64)
     m32, p32 = tb().build(device="cpu", dtype=F32)
     scale = 1e2 if name == "concentrator" else 1.0
+    # the Q2D slope's theta terms divide by r^2 + 1e-12 (both packages'
+    # geometry): a chief ray through the vertex lands ~1e-13 mm off it by
+    # rounding, and the two packages' roundings differ, which moves its
+    # direction by ~2e-12 (the directions' atol x 100 for that case)
+    dscale = 1e2 if name == "singlet:q2d" else scale
     px, py = _hexapolar(RINGS)
     hy_last = 1.0 if len(jp["fields"]) > 1 else 0.7
     for hy in (0.0, hy_last):
@@ -273,9 +321,9 @@ def test_eager_trace_and_plain_k1_match_jax(name):
                               np.isfinite(np.asarray(rj.x)))
         for f, atol in (("x", 1e-9), ("y", 1e-9), ("z", 1e-9), ("L", 1e-12),
                         ("M", 1e-12), ("N", 1e-12), ("opd", 1e-9)):
-            np.testing.assert_allclose(getattr(rt, f).numpy(),
-                                       np.asarray(getattr(rj, f)), rtol=0,
-                                       atol=atol * scale, err_msg=f)
+            np.testing.assert_allclose(
+                getattr(rt, f).numpy(), np.asarray(getattr(rj, f)), rtol=0,
+                atol=atol * (dscale if f in "LMN" else scale), err_msg=f)
         k = tgt.gen_trace_conic(m32, p32, torch.tensor(px, dtype=F32),
                                 torch.tensor(py, dtype=F32), 0.55, 0.0, hy,
                                 final_prop=True)
@@ -350,7 +398,7 @@ def newton_stack():
 
 @pytest.fixture(scope="module")
 def fresnel_stack():
-    """The Pallas K1 and K2 on the Fresnel stack: the file's one
+    """The Pallas K1 and K2 on the Fresnel and Forbes stack: the file's one
     interpreted K2."""
     return _interpreted("fresnel_stack", backward=True)
 
@@ -358,8 +406,9 @@ def fresnel_stack():
 @pytest.mark.parametrize("stack", ["newton_stack", "fresnel_stack"])
 def test_plain_k1_matches_interpreted_pallas(stack, request):
     """The Chebyshev grid, the Zernike sag and the toroid in one stack, and
-    both Fresnel kinds in another: the port's tables are the JAX entry
-    point's, and K1's plain version on them is the Pallas K1's outputs."""
+    both Fresnel kinds with both Forbes kinds in another: the port's tables
+    are the JAX entry point's, and K1's plain version on them is the Pallas
+    K1's outputs."""
     tables, px, py, _, outs, _ = request.getfixturevalue(stack)
     _, tb = freeform_builders(stack)
     _, _, gen, consts, acoef, flags = _port_tables(tb(), [0.0, 1.0])
@@ -369,7 +418,14 @@ def test_plain_k1_matches_interpreted_pallas(stack, request):
     np.testing.assert_allclose(consts.numpy(), np.asarray(tables["consts"]),
                                rtol=1e-6)
     jac = np.asarray(tables["acoef"])
-    np.testing.assert_array_equal(acoef.numpy()[:, :jac.shape[1]], jac)
+    forbes = [k for k, f in enumerate(flags) if f.gkind in ("qbfs", "q2d")]
+    other = [k for k in range(len(flags)) if k not in forbes]
+    np.testing.assert_array_equal(acoef.numpy()[other, :jac.shape[1]],
+                                  jac[other])
+    for k in forbes:
+        nc = tgt.n_coefs(flags[k].gkind, flags[k].nu, flags[k].nv)
+        np.testing.assert_allclose(acoef.numpy()[k, :nc], jac[k, :nc],
+                                   rtol=1e-6, atol=1e-12)
     out = tgt.gen_trace_plain(gen, consts, acoef, torch.tensor(px),
                               torch.tensor(py), flags, True)
     names = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
@@ -380,8 +436,10 @@ def test_plain_k1_matches_interpreted_pallas(stack, request):
 def test_plain_k2_matches_interpreted_pallas_k2(fresnel_stack):
     """Autograd through K1's plain version against the Pallas K2 on the
     Fresnel stack: dgen, dconsts (columns 0-5, and 24-25: the designed
-    facets' focal length and index), dPx and dPy, through the base-plane
-    roots, the parent conic's slope and the designed slope."""
+    facets' focal length and index, the Forbes norm radii), dacoef, dPx and
+    dPy, through the base-plane roots, the parent conic's slope, the
+    designed slope and the Forbes Clenshaw sums; each Forbes surface's
+    coefficient cotangents also at their own row's scale."""
     stack = "fresnel_stack"
     tables, px, py, cot, _, grads = fresnel_stack
     jdgen, jdconsts, jdacoef, jdpx, jdpy = [np.asarray(g) for g in grads]
@@ -401,6 +459,14 @@ def test_plain_k2_matches_interpreted_pallas_k2(fresnel_stack):
         np.testing.assert_allclose(g.numpy(), e, rtol=5e-3,
                                    atol=5e-3 * np.abs(e).max(),
                                    err_msg=f"{stack} {label}")
+    flags = jax_flags_as_port(tables["flags"])
+    for k, f in enumerate(flags):
+        if f.gkind in ("qbfs", "q2d"):
+            e = jdacoef[k, :f.nu]
+            assert np.abs(e).min() > 0 and abs(jdconsts[0, k, 24]) > 0
+            np.testing.assert_allclose(got[2][k, :f.nu].numpy(), e,
+                                       rtol=5e-3, atol=5e-3 * np.abs(e).max(),
+                                       err_msg=f"{stack} {f.gkind} dacoef")
 
 
 @pytest.mark.parametrize("kind,label,col", [("toroidal", "dconsts", 24),

@@ -134,6 +134,15 @@ def test_port_never_imports_jax():
         "h = HuygensPSF(CookeTriplet(), (0.0, 1.0), num_rays=8,\n"
         "               image_size=4, device='cpu')\n"
         "assert h.psf.isfinite().all()\n"
+        "import optiland_pr_tpu_torch.geometry.forbes\n"
+        "import optiland_pr_tpu_torch.system.apodization as apo\n"
+        "import optiland_pr_tpu_torch.system.constraints\n"
+        "from optiland_pr_tpu_torch.samples import UVProjectionLens\n"
+        "uv = UVProjectionLens()\n"
+        "uv.set_apodization(apo.TukeyApodization())\n"
+        "with engine_override('kernel'):\n"
+        "    r = uv.trace(Hy=1.0, num_rays=3, device='cpu')\n"
+        "assert r.x.isfinite().all() and r.intensity.min() < 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('optiland_pr_tpu.') "
         "or m == 'optiland_pr_tpu')\n"

@@ -171,8 +171,9 @@ def test_eager_trace_is_differentiable():
 def test_unported_surface_types_raise():
     lens = TOptic()
     lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
-    lens.add_surface(index=1, surface_type="forbes_qbfs", radius=10.0,
-                     thickness=2.0, material="N-BK7", coefficients=[1e-4])
+    lens.add_surface(index=1, surface_type="grid_sag", radius=10.0,
+                     thickness=2.0, material="N-BK7",
+                     sag_grid=[[0.0, 0.0], [0.0, 0.0]])
     lens.add_surface(index=2)
     with pytest.raises(NotImplementedError):
         lens.build(device="cpu")

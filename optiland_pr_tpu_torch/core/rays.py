@@ -5,7 +5,9 @@ Conventions kept from the JAX package:
 - blocked rays are masked by zeroing ``intensity``, never dropped,
 - ``opd`` accumulates |t * n| per propagation step.
 
-Polarization (the JAX ``p`` leaf) is not ported yet.
+A polarized bundle carries ``p``, the per-ray 3x3 polarization matrix chain
+[..., n, 3, 3] (``core/polarization.py``); it is None for an unpolarized
+one.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ __all__ = ["Rays", "new_rays", "propagate", "refract", "reflect", "clip",
 
 @dataclasses.dataclass(frozen=True)
 class Rays:
-    """A bundle of real rays; every field is a tensor of shape [..., n]."""
+    """A bundle of real rays; every field but ``p`` is a tensor of shape
+    [..., n]; ``p`` is the polarization chain [..., n, 3, 3] or None."""
     x: torch.Tensor
     y: torch.Tensor
     z: torch.Tensor
@@ -31,16 +34,18 @@ class Rays:
     intensity: torch.Tensor
     wavelength: torch.Tensor
     opd: torch.Tensor
+    p: torch.Tensor | None = None
 
     def replace(self, **kw) -> "Rays":
         return dataclasses.replace(self, **kw)
 
 
 def new_rays(x, y, z, L, M, N, intensity=1.0, wavelength=0.55, opd=None,
-             dtype=None, device=None) -> Rays:
+             polarized: bool = False, dtype=None, device=None) -> Rays:
     """Build a ray bundle, broadcasting scalars to the common shape. Without
     a ``device`` the bundle lies where its tensor inputs lie, or on the card
-    (``config.default_device()``) when all of them are Python numbers."""
+    (``config.default_device()``) when all of them are Python numbers.
+    ``polarized`` starts the polarization chain ``p`` at the identity."""
     dtype = dtype or default_float()
     if device is None:
         device = next((a.device for a in (x, y, z, L, M, N, intensity,
@@ -54,7 +59,11 @@ def new_rays(x, y, z, L, M, N, intensity=1.0, wavelength=0.55, opd=None,
         opd = torch.zeros(shape, dtype=dtype, device=arrs[0].device)
     else:
         opd = torch.as_tensor(opd, dtype=dtype, device=device).expand(shape)
-    return Rays(x, y, z, L, M, N, intensity, wavelength, opd)
+    p = None
+    if polarized:
+        p = torch.eye(3, dtype=dtype, device=arrs[0].device).expand(
+            shape + (3, 3))
+    return Rays(x, y, z, L, M, N, intensity, wavelength, opd, p)
 
 
 def propagate(rays: Rays, t, alpha=None) -> Rays:

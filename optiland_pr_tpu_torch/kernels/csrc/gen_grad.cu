@@ -1,4 +1,4 @@
-// K2, sub-slices (a), (b), (c), (d) and the OPD modes of (g): the
+// K2, sub-slices (a), (b), (c), (d), (e) and the OPD modes of (g): the
 // vector-Jacobian product of K1 (gen_trace.cu) by per-ray recompute and a
 // per-surface reverse sweep, one ray per thread.
 //
@@ -6,7 +6,10 @@
 // gen_grad_kahan.cu and gen_grad_split.cu include it with GRAD_MODE set to
 // OPD_KAHAN and OPD_SPLIT. Each library holds its mode's template instances
 // (4 stack depths x the variants: narrow, WIDE and, in the plain and Kahan
-// modes, FREEFORM and FORBES), and the three build in parallel.
+// modes, FREEFORM and FORBES), and the three build in parallel. The
+// polarized instances (sub-slice (e), GRAD_POL 1) are three more libraries,
+// gen_grad_pol.cu, gen_grad_pol_kahan.cu and gen_grad_pol_split.cu, so that
+// the unpolarized ones compile the code they had before (e).
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_grad.py::
 // _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic,
@@ -39,7 +42,17 @@
 //     the new opd and opd_c, the sum's gtk = g + gc, and opd, v and opd_c
 //     get gtk - gc, gtk - gc and -(gtk - gc), as autograd forms them;
 //   - the split mode's sag refresh clamps its root's argument at eps, which
-//     passes no cotangent, and the propagated z it replaces gets none.
+//     passes no cotangent, and the propagated z it replaces gets none;
+//   - (e): a polarized launch's final intensity, scale x sum |E|^2, is the
+//     only one with a cotangent (the traced intensity it replaces gets
+//     none); each surface's update of the E-vectors runs back into the
+//     directions before and after the interaction, the normal (so the
+//     sag's slopes and parameters), cos_i (|N| on a plane, |dot| else,
+//     derivative sign(.), 0 at 0), n1 and n2 (through the Fresnel
+//     coefficients) and the incoming vectors; the launch vectors into the
+//     launch direction and, through sqrt(w), the apodization weight. The
+//     fallback of the s basis and its guarded roots pass the cotangent to
+//     the taken branch only.
 //
 // Inputs: the forward's tables and pupil samples (gen_trace_common.cuh,
 // gen_trace.cu) and the cotangents of its 8 outputs, cot [8, W, F, n].
@@ -56,7 +69,8 @@
 //   1. gen_grad_kernel, grid (ceil(n/256), F, W) as in K1. Each thread runs
 //      the shared forward (gen_trace_common.cuh), so its lost-ray mask is
 //      K1's bit for bit, and keeps the boundary state of every surface
-//      (x, y, z, L, M, N, intensity: 7 floats) in a local array. The kernel
+//      (x, y, z, L, M, N, intensity: 7 floats; a polarized launch's
+//      E-vectors too, 3 n_ev more) in a local array. The kernel
 //      is a template on a stack-depth bucket (8, 16, 32, 64 surfaces) so the
 //      local array is sized for the system, not for the 64-surface maximum;
 //      it is indexed by the runtime surface number, so it lives in local
@@ -110,6 +124,10 @@
 
 #ifndef GRAD_MODE
 #define GRAD_MODE OPD_PLAIN
+#endif
+// 1: this library holds the polarized instances (sub-slice (e))
+#ifndef GRAD_POL
+#define GRAD_POL 0
 #endif
 
 #define GBLOCK 256
@@ -975,20 +993,293 @@ __device__ __forceinline__ void apod_adjoint(const float* g, float Px,
     dpy += ds2 * 2.0f * Py;
 }
 
+// ---- the polarization chain's adjoints (sub-slice (e)) ----------------------
+// Each surface's update of the E-vectors (gen_trace_common.cuh::
+// polar_surface, polar_apply) is recomputed from the tape's directions and
+// normal and the stored incoming vectors, then run back; a cross product
+// c = a x b sends the cotangent gc to a as b x gc and to b as gc x a.
+
+__device__ __forceinline__ void cross_acc(float ax, float ay, float az,
+                                          float bx, float by, float bz,
+                                          float* o) {
+    o[0] += ay * bz - az * by;
+    o[1] += az * bx - ax * bz;
+    o[2] += ax * by - ay * bx;
+}
+
+// Adjoint of fresnel_diag: adds to (dcos, dn1, dn2) for the cotangents
+// (gjs, gjp) of (js, jp), from the forward's intermediates in b; the
+// clamped root gets none on its clamp.
+__device__ __forceinline__ void fresnel_diag_adjoint(const PolSurf& b,
+                                                     float n1, float c,
+                                                     bool refl, float gjs,
+                                                     float gjp, float& dcos,
+                                                     float& dn1, float& dn2) {
+    float gc = 0.0f, groot = 0.0f, gn2c = 0.0f, gda = 0.0f, gdb = 0.0f,
+          ginv = 0.0f, gn = 0.0f;
+    if (refl) {
+        // js = ((c - root) db) finv, jp = -(((n2c - root) da) finv)
+        const float gjr = -gjp;
+        const float cm = c - b.root, nm = b.n2c - b.root;
+        const float gcm = gjs * b.db * b.finv;
+        gdb += gjs * cm * b.finv;
+        ginv += gjs * cm * b.db;
+        const float gnm = gjr * b.da * b.finv;
+        gda += gjr * nm * b.finv;
+        ginv += gjr * nm * b.da;
+        gc += gcm;
+        groot -= gcm + gnm;
+        gn2c += gnm;
+    } else {
+        // js = ((2 c) db) finv, jp = (((2 n) c) da) finv
+        gc += 2.0f * gjs * b.db * b.finv;
+        gdb += gjs * 2.0f * c * b.finv;
+        ginv += gjs * 2.0f * c * b.db;
+        const float t = 2.0f * b.n * c;
+        gn += gjp * 2.0f * c * b.da * b.finv;
+        gc += gjp * 2.0f * b.n * b.da * b.finv;
+        gda += gjp * t * b.finv;
+        ginv += gjp * t * b.da;
+    }
+    // finv = 1 / (da db), da = c + root, db = n2c + root, n2c = (n n) c
+    const float gprod = -ginv * b.finv * b.finv;
+    gda += gprod * b.db;
+    gdb += gprod * b.da;
+    gc += gda;
+    groot += gda + gdb;
+    gn2c += gdb;
+    gn += gn2c * c * 2.0f * b.n;
+    gc += gn2c * b.n * b.n;
+    // root = sqrt(rad > eps ? rad : eps), rad = n n - (1 - c c)
+    const float grad = b.rad > EPS_GUARD ? groot / (2.0f * b.root) : 0.0f;
+    gn += 2.0f * b.n * grad;
+    gc += 2.0f * c * grad;
+    // n = n2 / n1
+    dn2 += gn / n1;
+    dn1 -= gn * b.n / n1;
+    dcos += gc;
+}
+
+// Adjoint of the s/p form, E' = ds s + dp p1 + dk k1 with ds = js (s.E),
+// dp = jp (p0.E), dk = j3 (k0.E), on the forward's basis b (its fallback
+// and guarded roots; polar_adjoint).
+__device__ __forceinline__ void sp_adjoint(
+        const PolSurf& b, bool plane, bool refl, float n1, float cos_i,
+        float L0, float M0, float N0, float L1, float M1, float N1, float nx,
+        float ny, float nz, const float (*ein)[3], float (*g)[3], int nev,
+        float* gk0, float* gk1, float* gn, float& gcos, float& dn1,
+        float& dn2) {
+    // s' (s before the normalization) and the coefficients of a bare mirror
+    const float spx = b.fb ? 0.0f : b.sx0, spy = b.fb ? N0 : b.sy0,
+                spz = b.fb ? -M0 : b.sz0;
+    const float js = b.fres ? b.js : 1.0f, jp = b.fres ? b.jp : 1.0f,
+                j3 = b.fres ? b.j3 : 1.0f;
+    float gs[3] = {0.0f, 0.0f, 0.0f}, gp0[3] = {0.0f, 0.0f, 0.0f},
+          gp1[3] = {0.0f, 0.0f, 0.0f}, hk0[3] = {0.0f, 0.0f, 0.0f},
+          hk1[3] = {0.0f, 0.0f, 0.0f}, hn[3] = {0.0f, 0.0f, 0.0f},
+          gjs = 0.0f, gjp = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+        if (v >= nev) break;
+        const float ex = ein[v][0], ey = ein[v][1], ez = ein[v][2];
+        const float Gx = g[v][0], Gy = g[v][1], Gz = g[v][2];
+        const float dsr = b.sx * ex + b.sy * ey + b.sz * ez;
+        const float dpr = b.p0x * ex + b.p0y * ey + b.p0z * ez;
+        const float dkr = L0 * ex + M0 * ey + N0 * ez;
+        const float ds = js * dsr, dp = jp * dpr, dk = j3 * dkr;
+        const float gds = Gx * b.sx + Gy * b.sy + Gz * b.sz;
+        const float gdp = Gx * b.p1x + Gy * b.p1y + Gz * b.p1z;
+        const float gdk = Gx * L1 + Gy * M1 + Gz * N1;
+        gs[0] += ds * Gx;
+        gs[1] += ds * Gy;
+        gs[2] += ds * Gz;
+        gp1[0] += dp * Gx;
+        gp1[1] += dp * Gy;
+        gp1[2] += dp * Gz;
+        hk1[0] += dk * Gx;
+        hk1[1] += dk * Gy;
+        hk1[2] += dk * Gz;
+        gjs += gds * dsr;
+        gjp += gdp * dpr;
+        const float gdsr = gds * js, gdpr = gdp * jp, gdkr = gdk * j3;
+        gs[0] += gdsr * ex;
+        gs[1] += gdsr * ey;
+        gs[2] += gdsr * ez;
+        gp0[0] += gdpr * ex;
+        gp0[1] += gdpr * ey;
+        gp0[2] += gdpr * ez;
+        hk0[0] += gdkr * ex;
+        hk0[1] += gdkr * ey;
+        hk0[2] += gdkr * ez;
+        g[v][0] = gdsr * b.sx + gdpr * b.p0x + gdkr * L0;
+        g[v][1] = gdsr * b.sy + gdpr * b.p0y + gdkr * M0;
+        g[v][2] = gdsr * b.sz + gdpr * b.p0z + gdkr * N0;
+    }
+    // p1 = k1 x s, p0 = k0 x s
+    cross_acc(b.sx, b.sy, b.sz, gp1[0], gp1[1], gp1[2], hk1);
+    cross_acc(gp1[0], gp1[1], gp1[2], L1, M1, N1, gs);
+    cross_acc(b.sx, b.sy, b.sz, gp0[0], gp0[1], gp0[2], hk0);
+    cross_acc(gp0[0], gp0[1], gp0[2], L0, M0, N0, gs);
+    // s = s' inv, inv = 1 / sqrt(|s'|^2 > 0 ? |s'|^2 : 1)
+    float gsp[3] = {gs[0] * b.inv, gs[1] * b.inv, gs[2] * b.inv};
+    const float ginv = gs[0] * spx + gs[1] * spy + gs[2] * spz;
+    const float gm2 = b.mag2f > 0.0f ? -ginv * b.inv * b.inv / (2.0f * b.sq)
+                                     : 0.0f;
+    if (b.fb) {
+        // s' = (0, N0, -M0), |s'|^2 = N0 N0 + M0 M0
+        hk0[2] += gsp[1] + 2.0f * N0 * gm2;
+        hk0[1] += -gsp[2] + 2.0f * M0 * gm2;
+    } else if (plane) {
+        // s' = (-M0, L0, 0), |s'|^2 = L0 L0 + M0 M0
+        hk0[0] += gsp[1] + 2.0f * L0 * gm2;
+        hk0[1] += -gsp[0] + 2.0f * M0 * gm2;
+    } else {
+        // s' = k0 x n
+        gsp[0] += 2.0f * b.sx0 * gm2;
+        gsp[1] += 2.0f * b.sy0 * gm2;
+        gsp[2] += 2.0f * b.sz0 * gm2;
+        cross_acc(nx, ny, nz, gsp[0], gsp[1], gsp[2], hk0);
+        cross_acc(gsp[0], gsp[1], gsp[2], L0, M0, N0, hn);
+    }
+    for (int j = 0; j < 3; ++j) {
+        gk0[j] += hk0[j];
+        gk1[j] += hk1[j];
+        gn[j] += hn[j];
+    }
+    if (b.fres)
+        fresnel_diag_adjoint(b, n1, cos_i, refl, gjs, gjp, gcos, dn1, dn2);
+}
+
+// Adjoint of one surface's update of the vectors ein[v], v < nev, with the
+// basis b (polar_surface's, recomputed; its branches): g[v] holds the
+// cotangent of the updated vector on entry and of ein[v] on return; adds
+// the cotangents of k0 = (L0, M0, N0) (gk0), k1 (gk1), the normal (gn),
+// cos_i (gcos), n1 and n2. The fallback's where and the guarded roots pass
+// their cotangents to the taken branch only (the double where). Both forms
+// run in float32, as autograd through the plain version does: near normal
+// incidence the s basis's derivative grows as 1 / |k0 x n|, and so does
+// the float32 rounding of its cotangent, in the kernel and the plain
+// version alike.
+__device__ __forceinline__ void polar_adjoint(
+        const PolSurf& b, bool plane, bool refl, float n1, float cos_i,
+        float L0, float M0, float N0, float L1, float M1, float N1, float nx,
+        float ny, float nz, const float (*ein)[3], float (*g)[3], int nev,
+        float* gk0, float* gk1, float* gn, float& gcos, float& dn1,
+        float& dn2) {
+    if (!b.rod) {
+        sp_adjoint(b, plane, refl, n1, cos_i, L0, M0, N0, L1, M1, N1, nx, ny,
+                   nz, ein, g, nev, gk0, gk1, gn, gcos, dn1, dn2);
+        return;
+    }
+    // E' = ct E + u x E + u ue, ue = (u.E) inv1c, inv1c = 1 / (1 + ct),
+    // ct = k0.k1, u = k0 x k1
+    float gu[3] = {0.0f, 0.0f, 0.0f}, gct = 0.0f, ginv1c = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+        if (v >= nev) break;
+        const float ex = ein[v][0], ey = ein[v][1], ez = ein[v][2];
+        const float Gx = g[v][0], Gy = g[v][1], Gz = g[v][2];
+        const float uE = b.ux * ex + b.uy * ey + b.uz * ez;
+        const float ue = uE * b.inv1c;
+        gct += Gx * ex + Gy * ey + Gz * ez;
+        float h[3] = {b.ct * Gx, b.ct * Gy, b.ct * Gz};
+        cross_acc(ex, ey, ez, Gx, Gy, Gz, gu);             // E x G
+        cross_acc(Gx, Gy, Gz, b.ux, b.uy, b.uz, h);        // G x u
+        gu[0] += ue * Gx;
+        gu[1] += ue * Gy;
+        gu[2] += ue * Gz;
+        const float gue = Gx * b.ux + Gy * b.uy + Gz * b.uz;
+        const float guE = gue * b.inv1c;
+        ginv1c += gue * uE;
+        gu[0] += guE * ex;
+        gu[1] += guE * ey;
+        gu[2] += guE * ez;
+        g[v][0] = h[0] + guE * b.ux;
+        g[v][1] = h[1] + guE * b.uy;
+        g[v][2] = h[2] + guE * b.uz;
+    }
+    gct -= ginv1c * b.inv1c * b.inv1c;
+    gk0[0] += gct * L1;
+    gk0[1] += gct * M1;
+    gk0[2] += gct * N1;
+    gk1[0] += gct * L0;
+    gk1[1] += gct * M0;
+    gk1[2] += gct * N0;
+    cross_acc(L1, M1, N1, gu[0], gu[1], gu[2], gk0);       // k1 x gu
+    cross_acc(gu[0], gu[1], gu[2], L0, M0, N0, gk1);       // gu x k0
+}
+
+// Adjoint of polar_init: adds to (aL, aM, aN) the launch direction's
+// cotangents and to dw the weight's, for the cotangents g[v] of the launch
+// vectors.
+__device__ __forceinline__ void polar_init_adjoint(const float* gen_row,
+                                                   float L, float M, float N,
+                                                   float w,
+                                                   const PolLaunch& pl,
+                                                   const float (*g)[3],
+                                                   float& aL, float& aM,
+                                                   float& aN, float& dw) {
+    const float m2 = add(mul(N, N), mul(M, M));
+    const float sqm = sqt(m2 > 0.0f ? m2 : 1.0f);
+    const float inv = dvd(1.0f, sqm);
+    const float pxv = mul(0.0f, inv), pyv = mul(N, inv), pzv = mul(-M, inv);
+    const float sxv = sub(mul(pyv, N), mul(pzv, M));
+    const float syv = sub(mul(pzv, L), mul(pxv, N));
+    const float szv = sub(mul(pxv, M), mul(pyv, L));
+    const bool apod = (int)gen_row[11] > 1;
+    const float sa = w > 0.0f ? sqt(w) : 0.0f;
+    float gsv[3] = {0.0f, 0.0f, 0.0f}, gpv[3] = {0.0f, 0.0f, 0.0f},
+          gk[3] = {0.0f, 0.0f, 0.0f}, gsa = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+        if (v >= pl.nev) break;
+        const float a = pl.a[v], bb = pl.b[v];
+        float G[3] = {g[v][0], g[v][1], g[v][2]};
+        if (apod) {
+            gsa += G[0] * (a * sxv + bb * pxv) + G[1] * (a * syv + bb * pyv)
+                   + G[2] * (a * szv + bb * pzv);
+            G[0] *= sa;
+            G[1] *= sa;
+            G[2] *= sa;
+        }
+        for (int j = 0; j < 3; ++j) {
+            gsv[j] += a * G[j];
+            gpv[j] += bb * G[j];
+        }
+    }
+    // s = p x k
+    cross_acc(L, M, N, gsv[0], gsv[1], gsv[2], gpv);
+    cross_acc(gsv[0], gsv[1], gsv[2], pxv, pyv, pzv, gk);
+    // p = (0 inv, N inv, (-M) inv): no cotangent reaches inv through 0 inv
+    gk[2] += gpv[1] * inv;
+    gk[1] -= gpv[2] * inv;
+    const float ginv = gpv[1] * N - gpv[2] * M;
+    // inv = 1 / sqrt(m2 > 0 ? m2 : 1), m2 = N N + M M
+    const float gm2 = m2 > 0.0f ? -ginv * inv * inv / (2.0f * sqm) : 0.0f;
+    aL += gk[0];
+    aM += gk[1] + 2.0f * M * gm2;
+    aN += gk[2] + 2.0f * N * gm2;
+    // sqrt(w) where w > 0
+    if (apod && w > 0.0f) dw += gsa * 0.5f / sa;
+}
+
 // Adjoint of surface_step. ``in`` is the surface's input state, ``tp`` its
 // recomputed intermediates. ``a`` holds the cotangent of the output state on
 // entry and of the input state on return; dc receives the cotangents of
 // consts columns 0-6, 8-19 (dc[7 + j - 8] for column j in 8-19) and 24-25
 // (dc[19], dc[20]), da those of the surface's sag coefficients, dgap that of
-// column 27 (the split mode).
-template <int VAR, int MODE>
+// column 27 (the split mode). POL: pin holds the surface's input E-vectors,
+// gE their updated ones' cotangents on entry and their own on return.
+template <int VAR, int MODE, bool POL>
 __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
                                                 const float* ztab, int fl,
                                                 float sigma,
                                                 const RayState& in,
                                                 const SurfTape& tp, Adj& a,
                                                 float dc[NDC], float* da,
-                                                float& dgap) {
+                                                float& dgap,
+                                                const PolState* pin,
+                                                float (*gE)[3]) {
     constexpr bool WIDE = VAR != VAR_NARROW;
     constexpr bool FF = VAR >= VAR_FREEFORM;
     const float ri = c[0], conic = c[1];
@@ -1050,6 +1341,25 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         a.inten = a.inten * c[6];
     }
 
+    // ---- the polarization chain: E' from (L, M, N), (Lo, Mo, No), the
+    // normal and cos_i (|N| on a plane, |dot| else) ----------------------------
+    float gk0[3] = {0.0f, 0.0f, 0.0f}, gnrm[3] = {0.0f, 0.0f, 0.0f},
+          gcos = 0.0f;
+    if constexpr (POL) {
+        const bool plane = conic_like && (fl & FLAG_PLANE);
+        const float cos_i = plane ? fabsf(N) : fabsf(tp.dot);
+        PolSurf b;
+        polar_surface(b, fl, n1, n2, plane, cos_i, L, M, N, tp.Lo, tp.Mo,
+                      tp.No, tp.nx, tp.ny, tp.nz);
+        float gk1[3] = {0.0f, 0.0f, 0.0f};
+        polar_adjoint(b, plane, (fl & FLAG_REFL) != 0, n1, cos_i, L, M, N,
+                      tp.Lo, tp.Mo, tp.No, tp.nx, tp.ny, tp.nz, pin->e, gE,
+                      pin->nev, gk0, gk1, gnrm, gcos, dn1, dn2);
+        aLo += gk1[0];
+        aMo += gk1[1];
+        aNo += gk1[2];
+    }
+
     // ---- refract or reflect ------------------------------------------------
     float aL = 0.0f, aM = 0.0f, aN = 0.0f;     // cotangents of L, M, N in
     if (conic_like && (fl & FLAG_PLANE)) {
@@ -1072,6 +1382,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
             dn1 += du / n2;                    // u = n1 / n2
             dn2 -= du * u / n2;
         }
+        if constexpr (POL) aN += gcos * sgn(N);     // cos_i = |N|
     } else {
         float dnx, dny, dnz, ddot;
         if (fl & FLAG_REFL) {                  // d - 2 (d.n) n
@@ -1106,6 +1417,12 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
             ddot -= 2.0f * dot * d1m;
             dn1 += du / n2;
             dn2 -= du * u / n2;
+        }
+        if constexpr (POL) {
+            dnx += gnrm[0];
+            dny += gnrm[1];
+            dnz += gnrm[2];
+            ddot += gcos * sgn(tp.dot);
         }
         // dot = L nx + M ny + N nz
         aL += ddot * tp.nx;
@@ -1153,6 +1470,11 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
             ax2 += 2.0f * x2 * dr2;
             ay2 += 2.0f * y2 * dr2;
         }
+    }
+    if constexpr (POL) {
+        aL += gk0[0];
+        aM += gk0[1];
+        aN += gk0[2];
     }
 
     // ---- aperture: inten *= mask (no cotangent to the extents) -------------
@@ -1363,7 +1685,7 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     dc[5] = dalpha;
 }
 
-template <int MAXS, int VAR, int MODE>
+template <int MAXS, int VAR, int MODE, bool POL>
 __global__ void __launch_bounds__(GBLOCK)
 gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                 const float* __restrict__ acoef, const float* __restrict__ ztab,
@@ -1371,7 +1693,8 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                 const float* __restrict__ py, const float* __restrict__ cot,
                 float* __restrict__ part, float* __restrict__ dpx_wf,
                 float* __restrict__ dpy_wf, const GradLayout layout, int S,
-                int F, int W, int C, long long n, int nblk, int final_prop) {
+                int F, int W, int C, long long n, int nblk, int final_prop,
+                const PolLaunch pl) {
     __shared__ float sc[MAXS * CONST_W];
     __shared__ float sg[GEN_W];
     // the per-warp sums, [NWARP][nq]
@@ -1393,10 +1716,13 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     const float Px = active ? px[i] : 0.0f;
     const float Py = active ? py[i] : 0.0f;
 
-    // ---- forward, keeping each surface's input state ----------------------
-    float st[MAXS][7];
+    // ---- forward, keeping each surface's input state (a polarized launch's
+    // E-vectors too: 3 n_ev more floats) -------------------------------------
+    float st[MAXS][POL ? 13 : 7];
     RayState s;
+    PolState ps;
     gen_prologue<MODE>(sg, Px, Py, s);
+    if constexpr (POL) polar_init(sg, s.L, s.M, s.N, s.inten, pl, ps);
     float sigma = 1.0f;
     for (int k = 0; k < S; ++k) {
         st[k][0] = s.x;
@@ -1406,9 +1732,18 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         st[k][4] = s.M;
         st[k][5] = s.N;
         st[k][6] = s.inten;
+        if constexpr (POL) {
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+                if (v >= pl.nev) break;
+                st[k][7 + 3 * v] = ps.e[v][0];
+                st[k][8 + 3 * v] = ps.e[v][1];
+                st[k][9 + 3 * v] = ps.e[v][2];
+            }
+        }
         SurfTape tp;
-        surface_step<VAR, MODE>(sc + k * CONST_W, acoef + (size_t)k * C, ztab,
-                                layout.f[k], sigma, s, tp);
+        surface_step<VAR, MODE, POL>(sc + k * CONST_W, acoef + (size_t)k * C,
+                                     ztab, layout.f[k], sigma, s, tp, &ps);
         if (layout.f[k] & FLAG_REFL) sigma = -sigma;
     }
 
@@ -1427,6 +1762,20 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
             a.N = cot[5 * plane + o];
             a.opd = cot[7 * plane + o];
         }
+    }
+    // a polarized launch's intensity is scale sum |E|^2, and the traced
+    // intensity gets no cotangent
+    float gE[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+    if constexpr (POL) {
+        const float gi = 2.0f * pl.scale * a.inten;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+            if (v >= pl.nev) break;
+            gE[v][0] = gi * ps.e[v][0];
+            gE[v][1] = gi * ps.e[v][1];
+            gE[v][2] = gi * ps.e[v][2];
+        }
+        a.inten = 0.0f;
     }
 
     // ---- epilogue: (x, y, z) += t_img (L, M, N) ----------------------------
@@ -1457,16 +1806,28 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
         in.opd = 0.0f;
         in.opd_c = 0.0f;
         in.valid = true;
+        PolState pin;
+        if constexpr (POL) {
+            pin.nev = pl.nev;
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+                if (v >= pl.nev) break;
+                pin.e[v][0] = st[k][7 + 3 * v];
+                pin.e[v][1] = st[k][8 + 3 * v];
+                pin.e[v][2] = st[k][9 + 3 * v];
+            }
+        }
         RayState out = in;
         SurfTape tp;
+        // the tape does not depend on the E-vectors: recompute without them
         surface_step<VAR, MODE>(c, ac, ztab, fl, sigma, out, tp);
         float dc[NDC];
         float da[WIDE ? MAX_TERMS : 1];
         const int nu = WIDE ? ncoef_of(fl) : 0;
         for (int j = 0; j < nu; ++j) da[j] = 0.0f;
         float dgap;
-        surface_adjoint<VAR, MODE>(c, ac, ztab, fl, sigma, in, tp, a, dc, da,
-                                   dgap);
+        surface_adjoint<VAR, MODE, POL>(c, ac, ztab, fl, sigma, in, tp, a, dc,
+                                        da, dgap, &pin, gE);
         if (MODE == OPD_SPLIT) {
             const float v = warp_sum(active ? dgap : 0.0f);
             if (lane == 0) sw[warp * nq + layout.qoff[k] + n_slots(fl)] = v;
@@ -1518,6 +1879,13 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     const float dzr = tele ? g[5] : sub(g[5], z);
     const float smag = sqt(add(add(mul(dxr, dxr), mul(dyr, dyr)), mul(dzr, dzr)));
     const float inv_mag = dvd(1.0f, smag);
+    // the launch vectors of a polarized launch, from (L, M, N) and the
+    // weight
+    float dw_pol = 0.0f;
+    if constexpr (POL)
+        polar_init_adjoint(g, mul(dxr, inv_mag), mul(dyr, inv_mag),
+                           mul(dzr, inv_mag), apod_weight(g, Px, Py), pl, gE,
+                           a.L, a.M, a.N, dw_pol);
     // (L, M, N) = (dxr, dyr, dzr) * inv_mag
     const float dinv = a.L * dxr + a.M * dyr + a.N * dzr;
     float ddxr = a.L * inv_mag, ddyr = a.M * inv_mag, ddzr = a.N * inv_mag;
@@ -1540,7 +1908,7 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     dgv[8] = ddyr * Py;
     if (active && dpx_wf != nullptr) {
         float dpx = ddxr * g[8] + ax * g[0], dpy = ddyr * g[9] + ay * g[1];
-        apod_adjoint(g, Px, Py, a.inten, dpx, dpy);
+        apod_adjoint(g, Px, Py, POL ? a.inten + dw_pol : a.inten, dpx, dpy);
         dpx_wf[o] = dpx;
         dpy_wf[o] = dpy;
     }
@@ -1672,17 +2040,19 @@ static int launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
                          const float* cot,
                          float* part, float* dpx_wf, float* dpy_wf,
                          const GradLayout& g, int S, int F, int W, int C,
-                         long long n, int nblk, int final_prop) {
+                         long long n, int nblk, int final_prop,
+                         const PolLaunch& pl) {
     const size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
     if (shmem > 48 * 1024) {
         const int err = (int)cudaFuncSetAttribute(
-            gen_grad_kernel<MAXS, VAR, GRAD_MODE>,
+            gen_grad_kernel<MAXS, VAR, GRAD_MODE, (bool)GRAD_POL>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
         if (err) return err;
     }
-    gen_grad_kernel<MAXS, VAR, GRAD_MODE><<<grid, GBLOCK, shmem, stream>>>(
+    gen_grad_kernel<MAXS, VAR, GRAD_MODE, (bool)GRAD_POL>
+        <<<grid, GBLOCK, shmem, stream>>>(
         gen, consts, acoef, ztab, px, py, cot, part, dpx_wf, dpy_wf, g, S, F,
-        W, C, n, nblk, final_prop);
+        W, C, n, nblk, final_prop, pl);
     return (int)cudaGetLastError();
 }
 
@@ -1692,28 +2062,32 @@ static int launch_grad(dim3 grid, cudaStream_t st, const float* gen,
                        const float* ztab, const float* px, const float* py,
                        const float* cot, float* part, float* dpx_wf,
                        float* dpy_wf, const GradLayout& g, int S, int F, int W,
-                       int C, long long n, int nblk, int final_prop) {
+                       int C, long long n, int nblk, int final_prop,
+                       const PolLaunch& pl) {
     if (S <= 8)
         return launch_bucket<8, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
                                      cot, part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                     nblk, final_prop);
+                                     nblk, final_prop, pl);
     if (S <= 16)
         return launch_bucket<16, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
                                       cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
-                                      n, nblk, final_prop);
+                                      n, nblk, final_prop, pl);
     if (S <= 32)
         return launch_bucket<32, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
                                       cot, part, dpx_wf, dpy_wf, g, S, F, W, C,
-                                      n, nblk, final_prop);
+                                      n, nblk, final_prop, pl);
     return launch_bucket<64, VAR>(grid, st, gen, consts, acoef, ztab, px, py,
                                   cot, part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                  nblk, final_prop);
+                                  nblk, final_prop, pl);
 }
 
 // Launch the three kernels on ``stream``; returns cudaGetLastError() after
 // each launch (0 on success). flags is a host array of S words; acoef has C
 // floats per surface; ztab is the device Zernike table; opd_mode must be
-// this library's GRAD_MODE; part holds gen_grad_partials_size floats;
+// this library's GRAD_MODE; polar is a polarized launch's host array
+// [n_ev, scale, a0, b0, a1, b1], which only a polarized library (GRAD_POL
+// 1) takes, or null, which only the others take; part holds
+// gen_grad_partials_size floats;
 // dpx_wf/dpy_wf hold W*F*n floats each, or are null (then dpx/dpy are not
 // written). On success *variant, when not null, is the variant launched
 // (VAR_NARROW, VAR_WIDE, VAR_FREEFORM or VAR_FORBES). Allocates nothing
@@ -1727,12 +2101,16 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
                                float* dconsts, float* dacoef, float* dpx,
                                float* dpy, const int32_t* flags, int S, int F,
                                int W, int C, long long n, int final_prop,
-                               int opd_mode, void* stream, int* variant) {
+                               int opd_mode, const float* polar, void* stream,
+                               int* variant) {
     GradLayout g;
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
         n < 1 || C < 0 || (dpx_wf == nullptr) != (dpy_wf == nullptr) ||
-        opd_mode != GRAD_MODE || !make_layout(flags, S, C, g))
+        opd_mode != GRAD_MODE || (polar != nullptr) != (bool)GRAD_POL ||
+        !make_layout(flags, S, C, g))
         return (int)cudaErrorInvalidValue;
+    PolLaunch pl;
+    if (!polar_launch_of(polar, pl)) return (int)cudaErrorInvalidValue;
     for (int k = 0; k < S; ++k)
         if (acoef_width_of(g.f[k]) > C) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -1746,20 +2124,20 @@ extern "C" int gen_grad_launch(const float* gen, const float* consts,
         if (var == VAR_FORBES)
             err = launch_grad<VAR_FORBES>(grid, st, gen, consts, acoef, ztab,
                                           px, py, cot, part, dpx_wf, dpy_wf, g,
-                                          S, F, W, C, n, nblk, final_prop);
+                                          S, F, W, C, n, nblk, final_prop, pl);
         if (var == VAR_FREEFORM)
             err = launch_grad<VAR_FREEFORM>(grid, st, gen, consts, acoef, ztab,
                                             px, py, cot, part, dpx_wf, dpy_wf, g,
-                                            S, F, W, C, n, nblk, final_prop);
+                                            S, F, W, C, n, nblk, final_prop, pl);
     }
     if (var == VAR_WIDE)
         err = launch_grad<VAR_WIDE>(grid, st, gen, consts, acoef, ztab, px, py,
                                     cot, part, dpx_wf, dpy_wf, g, S, F, W, C, n,
-                                    nblk, final_prop);
+                                    nblk, final_prop, pl);
     else if (var == VAR_NARROW)
         err = launch_grad<VAR_NARROW>(grid, st, gen, consts, acoef, ztab, px,
                                       py, cot, part, dpx_wf, dpy_wf, g, S, F, W,
-                                      C, n, nblk, final_prop);
+                                      C, n, nblk, final_prop, pl);
     if (err) return err;
     if (variant != nullptr) *variant = var;
     const long long n_out = (long long)W * S * CONST_W + (long long)F * GEN_W

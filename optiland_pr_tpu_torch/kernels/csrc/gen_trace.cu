@@ -1,4 +1,4 @@
-// K1, sub-slices (a), (b), (c), (d) and the OPD modes of (g): fused ray
+// K1, sub-slices (a), (b), (c), (d), (e) and the OPD modes of (g): fused ray
 // generation + surface stack + image propagation, one ray per thread.
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_trace.py::
@@ -47,19 +47,36 @@
 // them (measured on an H100: split +36% on the Cooke triplet, PERF.md). The
 // freeform sags are bound by operations too: each Newton evaluation of a
 // 4 x 4 Chebyshev grid is ~17 operations of the conic base and ~130 of the
-// grid and its recurrences, 10 evaluations a surface.
+// grid and its recurrences, 10 evaluations a surface. A polarized launch
+// (e) adds per surface and vector ~30 operations (the s/p update; the basis
+// ~40 more per surface) and its E-vectors' 3 n_ev registers.
+//
+// Sub-slice (e), a polarized launch, is the template flag POL: the E-vectors
+// (gen_trace_common.cuh) live in registers beside the ray state, and the
+// launch state (n_ev, the scale, each vector's amplitudes) is a kernel
+// argument. Its instances are a library of their own, gen_trace_pol.cu
+// (this file with TRACE_POL 1), built in parallel with this one, so that
+// the unpolarized instances compile as they did before it. One template
+// flag, not n_ev: a linear state's second vector is skipped by a branch
+// uniform over the launch, which halves the instances to build; measured on
+// an H100, a compile-time n_ev = 1 is 2-4% faster on the linear launches
+// (probes/nev_template.py, PERF.md).
 #include "gen_trace_common.cuh"
+
+#ifndef TRACE_POL
+#define TRACE_POL 0
+#endif
 
 #define BLOCK 256
 
-template <int VAR, int MODE>
+template <int VAR, int MODE, bool POL>
 __global__ void __launch_bounds__(BLOCK)
 gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                  const float* __restrict__ acoef, const float* __restrict__ ztab,
                  const float* __restrict__ px,
                  const float* __restrict__ py, float* __restrict__ out,
                  const SurfFlags flags, int S, int F, int W, int C, long long n,
-                 int final_prop) {
+                 int final_prop, const PolLaunch pl) {
     __shared__ float sc[MAX_SURF * CONST_W];
     __shared__ float sg[GEN_W];
     const int f = blockIdx.y;
@@ -73,15 +90,20 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     if (i >= n) return;
 
     RayState s;
+    PolState ps;
     gen_prologue<MODE>(sg, px[i], py[i], s);
+    if constexpr (POL) polar_init(sg, s.L, s.M, s.N, s.inten, pl, ps);
     float sigma = 1.0f;
     for (int k = 0; k < S; ++k) {
         SurfTape tp;
-        surface_step<VAR, MODE>(sc + k * CONST_W, acoef + (size_t)k * C, ztab,
-                                flags.f[k], sigma, s, tp);
+        surface_step<VAR, MODE, POL>(sc + k * CONST_W, acoef + (size_t)k * C,
+                                     ztab, flags.f[k], sigma, s, tp, &ps);
         if (flags.f[k] & FLAG_REFL) sigma = -sigma;
     }
     gen_epilogue(sg, final_prop, s);
+    // a polarized launch's intensity is the chain's (_gen_epilogue
+    // :2128-2134)
+    if constexpr (POL) s.inten = polar_intensity(ps, pl.scale);
 
     // NaN for lost rays (_nanify8); intensity is never masked
     if (!s.valid) {
@@ -104,9 +126,10 @@ static void launch(dim3 grid, cudaStream_t st, const float* gen,
                    const float* consts, const float* acoef, const float* ztab,
                    const float* px, const float* py, float* out,
                    const SurfFlags& fl, int S, int F, int W, int C, long long n,
-                   int final_prop) {
-    gen_trace_kernel<VAR, MODE><<<grid, BLOCK, 0, st>>>(
-        gen, consts, acoef, ztab, px, py, out, fl, S, F, W, C, n, final_prop);
+                   int final_prop, const PolLaunch& pl) {
+    gen_trace_kernel<VAR, MODE, (bool)TRACE_POL><<<grid, BLOCK, 0, st>>>(
+        gen, consts, acoef, ztab, px, py, out, fl, S, F, W, C, n, final_prop,
+        pl);
 }
 
 // the split mode takes no freeform sag (split_ok), so its FREEFORM variant
@@ -117,43 +140,49 @@ static void launch_mode(int var, dim3 grid, cudaStream_t st,
                         const float* acoef, const float* ztab, const float* px,
                         const float* py, float* out, const SurfFlags& fl,
                         int S, int F, int W, int C, long long n,
-                        int final_prop) {
+                        int final_prop, const PolLaunch& pl) {
     if constexpr (MODE != OPD_SPLIT) {
         if (var == VAR_FORBES) {
             launch<VAR_FORBES, MODE>(grid, st, gen, consts, acoef, ztab, px,
-                                     py, out, fl, S, F, W, C, n, final_prop);
+                                     py, out, fl, S, F, W, C, n, final_prop, pl);
             return;
         }
         if (var == VAR_FREEFORM) {
             launch<VAR_FREEFORM, MODE>(grid, st, gen, consts, acoef, ztab, px,
-                                       py, out, fl, S, F, W, C, n, final_prop);
+                                       py, out, fl, S, F, W, C, n, final_prop, pl);
             return;
         }
     }
     if (var == VAR_WIDE)
         launch<VAR_WIDE, MODE>(grid, st, gen, consts, acoef, ztab, px, py, out,
-                               fl, S, F, W, C, n, final_prop);
+                               fl, S, F, W, C, n, final_prop, pl);
     else
         launch<VAR_NARROW, MODE>(grid, st, gen, consts, acoef, ztab, px, py,
-                                 out, fl, S, F, W, C, n, final_prop);
+                                 out, fl, S, F, W, C, n, final_prop, pl);
 }
 
 // Launch on ``stream``; returns cudaGetLastError() (0 on success). flags is a
 // host array of S words; acoef has C floats per surface; ztab is the device
 // Zernike table; opd_mode is OPD_PLAIN, OPD_KAHAN or OPD_SPLIT (the last for
-// untilted conic/plane stacks only). On success *variant, when not null,
-// is the variant launched (VAR_NARROW, VAR_WIDE, VAR_FREEFORM or
-// VAR_FORBES). Allocates nothing and does not synchronise.
+// untilted conic/plane stacks only); polar is a host array [n_ev, scale,
+// a0, b0, a1, b1] of a polarized launch, which only the polarized library
+// (TRACE_POL 1) takes, or null, which only the other takes. On success
+// *variant, when not null, is the variant launched (VAR_NARROW, VAR_WIDE,
+// VAR_FREEFORM or VAR_FORBES). Allocates nothing and does not synchronise.
 extern "C" int gen_trace_launch(const float* gen, const float* consts,
                                 const float* acoef, const float* ztab,
                                 const float* px,
                                 const float* py, float* out,
                                 const int32_t* flags, int S, int F, int W,
                                 int C, long long n, int final_prop,
-                                int opd_mode, void* stream, int* variant) {
+                                int opd_mode, const float* polar, void* stream,
+                                int* variant) {
     if (S < 1 || S > MAX_SURF || F < 1 || W < 1 || F > 65535 || W > 65535 ||
-        n < 1 || C < 0 || opd_mode < OPD_PLAIN || opd_mode > OPD_SPLIT)
+        n < 1 || C < 0 || opd_mode < OPD_PLAIN || opd_mode > OPD_SPLIT ||
+        (polar != nullptr) != (bool)TRACE_POL)
         return (int)cudaErrorInvalidValue;
+    PolLaunch pl;
+    if (!polar_launch_of(polar, pl)) return (int)cudaErrorInvalidValue;
     SurfFlags fl;
     for (int k = 0; k < MAX_SURF; ++k) {
         fl.f[k] = k < S ? flags[k] : 0;
@@ -168,13 +197,13 @@ extern "C" int gen_trace_launch(const float* gen, const float* consts,
     cudaStream_t st = (cudaStream_t)stream;
     if (opd_mode == OPD_SPLIT)
         launch_mode<OPD_SPLIT>(var, grid, st, gen, consts, acoef, ztab, px, py,
-                               out, fl, S, F, W, C, n, final_prop);
+                               out, fl, S, F, W, C, n, final_prop, pl);
     else if (opd_mode == OPD_KAHAN)
         launch_mode<OPD_KAHAN>(var, grid, st, gen, consts, acoef, ztab, px, py,
-                               out, fl, S, F, W, C, n, final_prop);
+                               out, fl, S, F, W, C, n, final_prop, pl);
     else
         launch_mode<OPD_PLAIN>(var, grid, st, gen, consts, acoef, ztab, px, py,
-                               out, fl, S, F, W, C, n, final_prop);
+                               out, fl, S, F, W, C, n, final_prop, pl);
     const int err = (int)cudaGetLastError();
     if (err == 0 && variant != nullptr) *variant = var;
     return err;

@@ -10,7 +10,10 @@
 // Kahan-compensated sum and the split-OPD accumulation.
 //
 // Both kernels run this one forward, so K2's recomputed forward is bit for
-// bit K1's, lost-ray masks included.
+// bit K1's, lost-ray masks included. Sub-slice (e), the polarization chain,
+// is a template flag (POL) of the surface step, with its own libraries
+// (gen_trace_pol.cu, gen_grad_pol*.cu), so that unpolarized launches run
+// the code they ran before it.
 //
 // Counterpart of optiland_pr_tpu/kernels/pallas_trace.py: _gen_prologue
 // (2008-2054, the split frame 2032-2038), _surface_step (1308-1754:
@@ -58,7 +61,7 @@
 //                      sag (GK_*); bits 10-15 nu, the terms of a sag or the
 //                      x size of a grid; bits 16-21 nv, a grid's y size;
 //                      bits 22-23 the Zernike basis (0 standard, 1 fringe,
-//                      2 Noll)
+//                      2 Noll); bit 24 a Fresnel coating
 //
 // Rounding: every operation is an explicit IEEE round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never contracts
@@ -113,6 +116,9 @@
 
 enum { FLAG_PLANE = 1, FLAG_REFL = 2, FLAG_ABSORB = 4, FLAG_CS = 8,
        FLAG_AP = 16, FLAG_COAT = 32 };
+// a Fresnel coating (bit 24): read by a polarized launch only, so it needs
+// no wider variant
+#define FLAG_FRESNEL (1 << 24)
 // the sag kinds
 enum { GK_CONIC = 0, GK_EVEN = 1, GK_ODD = 2, GK_POLY = 3, GK_CHEB = 4,
        GK_BICONIC = 5, GK_TORUS = 6, GK_TORUS_INF = 7, GK_ZERNIKE = 8,
@@ -756,6 +762,209 @@ __device__ __forceinline__ float apod_weight(const float* g, float Px,
     return __int_as_float(0x7fc00000);         // no such profile
 }
 
+// ---- the polarization chain (sub-slice (e)) ---------------------------------
+// A polarized launch carries n_ev (1 or 2) real E-vectors per ray
+// (pallas_trace.py::_polar_layout :1922, _polar_init :796-828): a linear
+// state one, a complex state its real and imaginary projections, the
+// unpolarized average the two linear states at scale 0.5. Each is a s + b p
+// in the launch basis p = k x (1, 0, 0) / |.|, s = p x k, scaled by sqrt(w)
+// under an apodization weight w. Each surface's refract/reflect step
+// updates them by its rank-structured Jones matrix (_polar_update :686),
+//   E' = js (s.E) s + jp (p0.E) p1 + j3 (k0.E) k1,
+// with s ~ k0 x n (n the normal; (-M0, L0, 0) on a plane), p0 = k0 x s,
+// p1 = k1 x s, and s = k0 x (1, 0, 0) below |s|^2 = 1e-12; (js, jp, j3) a
+// Fresnel coating's real s/p coefficients (_fresnel_diag :773; (js, -jp,
+// -1) on a mirror), else 1. A bare refracting surface takes the rotation
+// about u = k0 x k1 instead (Rodrigues with u unnormalized: no root, no
+// fallback). k0 and k1 are the local directions before and after the
+// interaction: the vectors are not rotated by localize or globalize (the
+// reference's frame mixing, kept). The final intensity is scale x the sum
+// of the squared norms, in place of the traced one (aperture, coatings and
+// absorption included; lost rays still end NaN). The launch's numbers are
+// a kernel argument, uniform over the launch: a linear state's second
+// vector is skipped by a branch no warp diverges on.
+struct PolLaunch {
+    int nev;            // 1 or 2
+    float scale;        // 1, or 0.5 for the unpolarized average
+    float a[2], b[2];   // each vector's s and p amplitudes
+};
+
+struct PolState {
+    float e[2][3];
+    int nev;
+};
+
+// The launch state from the host array [n_ev, scale, a0, b0, a1, b1] (null:
+// unpolarized, n_ev 0); false for an n_ev that is not 1 or 2.
+static inline bool polar_launch_of(const float* polar, PolLaunch& pl) {
+    pl = {0, 1.0f, {0.0f, 0.0f}, {0.0f, 0.0f}};
+    if (polar == nullptr) return true;
+    pl = {(int)polar[0], polar[1], {polar[2], polar[4]}, {polar[3], polar[5]}};
+    return pl.nev == 1 || pl.nev == 2;
+}
+
+#define POL_FALLBACK 1e-12f
+
+// One surface's Jones update and the intermediates K2's adjoint reads.
+struct PolSurf {
+    bool rod;                       // the Rodrigues form
+    float ux, uy, uz, ct, inv1c;
+    float sx0, sy0, sz0, mag2;      // s before the fallback, |s|^2
+    bool fb;                        // the fallback taken
+    float mag2f, sq, inv;           // |s|^2 after it, the guarded root, 1/root
+    float sx, sy, sz, p0x, p0y, p0z, p1x, p1y, p1z;
+    bool fres;                      // a Fresnel coating's coefficients
+    float js, jp, j3;
+    float n, rad, root, n2c, da, db, finv;
+};
+
+// _fresnel_diag: the clamp rad > eps, one shared reciprocal
+__device__ __forceinline__ void fresnel_diag(PolSurf& b, float n1, float n2,
+                                             float cos_i, bool refl) {
+    b.n = dvd(n2, n1);
+    const float sin2 = sub(1.0f, mul(cos_i, cos_i));
+    b.rad = sub(mul(b.n, b.n), sin2);
+    b.root = sqt(b.rad > EPS_GUARD ? b.rad : EPS_GUARD);
+    b.n2c = mul(mul(b.n, b.n), cos_i);
+    b.da = add(cos_i, b.root);
+    b.db = add(b.n2c, b.root);
+    b.finv = dvd(1.0f, mul(b.da, b.db));
+    if (refl) {
+        b.js = mul(mul(sub(cos_i, b.root), b.db), b.finv);
+        b.jp = -mul(mul(sub(b.n2c, b.root), b.da), b.finv);
+        b.j3 = -1.0f;
+    } else {
+        b.js = mul(mul(mul(2.0f, cos_i), b.db), b.finv);
+        b.jp = mul(mul(mul(mul(2.0f, b.n), cos_i), b.da), b.finv);
+        b.j3 = 1.0f;
+    }
+}
+
+// The basis of a surface's update from k0 = (L0, M0, N0), k1 = (L1, M1, N1),
+// the normal (read unless ``plane``) and cos_i (read by a Fresnel coating).
+__device__ __forceinline__ void polar_surface(PolSurf& b, int fl, float n1,
+                                              float n2, bool plane,
+                                              float cos_i, float L0, float M0,
+                                              float N0, float L1, float M1,
+                                              float N1, float nx, float ny,
+                                              float nz) {
+    const bool refl = (fl & FLAG_REFL) != 0;
+    b.fres = (fl & FLAG_FRESNEL) != 0;
+    b.rod = !b.fres && !refl;
+    if (b.rod) {
+        b.ux = sub(mul(M0, N1), mul(N0, M1));
+        b.uy = sub(mul(N0, L1), mul(L0, N1));
+        b.uz = sub(mul(L0, M1), mul(M0, L1));
+        b.ct = add(add(mul(L0, L1), mul(M0, M1)), mul(N0, N1));
+        b.inv1c = dvd(1.0f, add(1.0f, b.ct));
+        return;
+    }
+    if (plane) {
+        b.sx0 = -M0;
+        b.sy0 = L0;
+        b.sz0 = 0.0f;
+        b.mag2 = add(mul(L0, L0), mul(M0, M0));
+    } else {
+        b.sx0 = sub(mul(M0, nz), mul(N0, ny));
+        b.sy0 = sub(mul(N0, nx), mul(L0, nz));
+        b.sz0 = sub(mul(L0, ny), mul(M0, nx));
+        b.mag2 = add(add(mul(b.sx0, b.sx0), mul(b.sy0, b.sy0)),
+                     mul(b.sz0, b.sz0));
+    }
+    b.fb = b.mag2 < POL_FALLBACK;
+    const float sx = b.fb ? 0.0f : b.sx0;
+    const float sy = b.fb ? N0 : b.sy0;
+    const float sz = b.fb ? -M0 : b.sz0;
+    b.mag2f = b.fb ? add(mul(N0, N0), mul(M0, M0)) : b.mag2;
+    b.sq = sqt(b.mag2f > 0.0f ? b.mag2f : 1.0f);
+    b.inv = dvd(1.0f, b.sq);
+    b.sx = mul(sx, b.inv);
+    b.sy = mul(sy, b.inv);
+    b.sz = mul(sz, b.inv);
+    b.p0x = sub(mul(M0, b.sz), mul(N0, b.sy));
+    b.p0y = sub(mul(N0, b.sx), mul(L0, b.sz));
+    b.p0z = sub(mul(L0, b.sy), mul(M0, b.sx));
+    b.p1x = sub(mul(M1, b.sz), mul(N1, b.sy));
+    b.p1y = sub(mul(N1, b.sx), mul(L1, b.sz));
+    b.p1z = sub(mul(L1, b.sy), mul(M1, b.sx));
+    if (b.fres) fresnel_diag(b, n1, n2, cos_i, refl);
+}
+
+// E <- the surface's update of E
+__device__ __forceinline__ void polar_apply(const PolSurf& b, float L0,
+                                            float M0, float N0, float L1,
+                                            float M1, float N1, float* e) {
+    const float ex = e[0], ey = e[1], ez = e[2];
+    if (b.rod) {
+        const float ue = mul(add(add(mul(b.ux, ex), mul(b.uy, ey)),
+                                 mul(b.uz, ez)), b.inv1c);
+        e[0] = add(add(mul(b.ct, ex), sub(mul(b.uy, ez), mul(b.uz, ey))),
+                   mul(b.ux, ue));
+        e[1] = add(add(mul(b.ct, ey), sub(mul(b.uz, ex), mul(b.ux, ez))),
+                   mul(b.uy, ue));
+        e[2] = add(add(mul(b.ct, ez), sub(mul(b.ux, ey), mul(b.uy, ex))),
+                   mul(b.uz, ue));
+        return;
+    }
+    float ds = add(add(mul(b.sx, ex), mul(b.sy, ey)), mul(b.sz, ez));
+    float dp = add(add(mul(b.p0x, ex), mul(b.p0y, ey)), mul(b.p0z, ez));
+    float dk = add(add(mul(L0, ex), mul(M0, ey)), mul(N0, ez));
+    if (b.fres) {
+        ds = mul(b.js, ds);
+        dp = mul(b.jp, dp);
+        dk = mul(b.j3, dk);
+    }
+    e[0] = add(add(mul(ds, b.sx), mul(dp, b.p1x)), mul(dk, L1));
+    e[1] = add(add(mul(ds, b.sy), mul(dp, b.p1y)), mul(dk, M1));
+    e[2] = add(add(mul(ds, b.sz), mul(dp, b.p1z)), mul(dk, N1));
+}
+
+// The launch vectors from the launch direction (L, M, N) and the weight w
+// (the launch intensity; scaled by sqrt(w) under an apodization, gen column
+// 11 above APOD_UNIFORM: the double where at w = 0).
+__device__ __forceinline__ void polar_init(const float* g, float L, float M,
+                                           float N, float w,
+                                           const PolLaunch& pl, PolState& ps) {
+    const float pyv0 = N, pzv0 = -M;
+    const float m2 = add(mul(pyv0, pyv0), mul(pzv0, pzv0));
+    const float inv = dvd(1.0f, sqt(m2 > 0.0f ? m2 : 1.0f));
+    const float pxv = mul(0.0f, inv), pyv = mul(pyv0, inv), pzv = mul(pzv0, inv);
+    const float sxv = sub(mul(pyv, N), mul(pzv, M));
+    const float syv = sub(mul(pzv, L), mul(pxv, N));
+    const float szv = sub(mul(pxv, M), mul(pyv, L));
+    const bool apod = (int)g[11] > 1;           // above APOD_UNIFORM
+    const float sa = w > 0.0f ? sqt(w) : 0.0f;
+    ps.nev = pl.nev;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+        if (v >= pl.nev) break;
+        const float a = pl.a[v], b = pl.b[v];
+        ps.e[v][0] = add(mul(a, sxv), mul(b, pxv));
+        ps.e[v][1] = add(mul(a, syv), mul(b, pyv));
+        ps.e[v][2] = add(mul(a, szv), mul(b, pzv));
+        if (apod) {
+            ps.e[v][0] = mul(ps.e[v][0], sa);
+            ps.e[v][1] = mul(ps.e[v][1], sa);
+            ps.e[v][2] = mul(ps.e[v][2], sa);
+        }
+    }
+}
+
+// scale x sum |E|^2 (_polar_intensity)
+__device__ __forceinline__ float polar_intensity(const PolState& ps,
+                                                 float scale) {
+    float total = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+        if (v >= ps.nev) break;
+        const float sq = add(add(mul(ps.e[v][0], ps.e[v][0]),
+                                 mul(ps.e[v][1], ps.e[v][1])),
+                             mul(ps.e[v][2], ps.e[v][2]));
+        total = v == 0 ? sq : add(total, sq);
+    }
+    return mul(total, scale);
+}
+
 // ---- prologue: launch by generalized aiming (_gen_prologue) -------------
 // gen column 10 selects the object-space telecentric aim x1 = Px*B + x0
 // (dxr = Px g8, dzr = g5, the constant axial distance); column 11 the
@@ -785,12 +994,14 @@ __device__ __forceinline__ void gen_prologue(const float* g, float Px, float Py,
 // ---- one surface (_surface_step) -------------------------------------------
 // c: the surface's constant row; ac: its sag coefficients (read only by WIDE
 // and FREEFORM); ztab: the Zernike table (read only by FREEFORM); sigma:
-// the propagation sign (read only by OPD_SPLIT).
-template <int VAR, int MODE>
+// the propagation sign (read only by OPD_SPLIT); ps: a polarized launch's
+// E-vectors (POL only).
+template <int VAR, int MODE, bool POL = false>
 __device__ __forceinline__ void surface_step(const float* c, const float* ac,
                                              const float* ztab, int fl,
                                              float sigma, RayState& s,
-                                             SurfTape& tp) {
+                                             SurfTape& tp,
+                                             PolState* ps = nullptr) {
     constexpr bool WIDE = VAR != VAR_NARROW;
     constexpr bool FF = VAR >= VAR_FREEFORM;
     const float ri = c[0], conic = c[1], pos_z = c[2];
@@ -976,6 +1187,19 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
             Mo = add(mul(tp.u, M), mul(tp.ny, tp.w));
             No = add(mul(tp.u, N), mul(tp.nz, tp.w));
             s.valid = s.valid && tp.ok_r;
+        }
+    }
+    // the polarization chain, on the local directions before and after the
+    // interaction (pallas_trace.py:1517-1523, 1663-1731)
+    if constexpr (POL) {
+        const bool plane = conic_like && (fl & FLAG_PLANE);
+        PolSurf b;
+        polar_surface(b, fl, n1, n2, plane, plane ? fabsf(N) : fabsf(tp.dot),
+                      L, M, N, Lo, Mo, No, tp.nx, tp.ny, tp.nz);
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+            if (v >= ps->nev) break;
+            polar_apply(b, L, M, N, Lo, Mo, No, ps->e[v]);
         }
     }
     // the simple coating's factor, after the interaction

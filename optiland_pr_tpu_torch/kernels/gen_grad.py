@@ -1,5 +1,5 @@
 """K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b),
-(c), (d) and the OPD modes of (g) (counterpart of
+(c), (d), (e) and the OPD modes of (g) (counterpart of
 ``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
 ``diff_gen_trace`` custom_vjp).
 
@@ -9,7 +9,7 @@ The module holds
   the given cotangents;
 - ``gen_trace_bwd_cuda``: the wrapper of the hand-written CUDA kernel
   ``csrc/gen_grad.cu``, built with nvcc at first use (one library per OPD
-  mode) and bound with ctypes;
+  mode, and per mode one of the polarized instances) and bound with ctypes;
 - ``GenTrace``: the ``torch.autograd.Function`` over K1. Its forward is K1
   (the CUDA kernel on CUDA tensors, the plain version on CPU tensors), its
   backward K2 on the same device. A CUDA tensor never falls back to a plain
@@ -26,22 +26,24 @@ import ctypes
 
 import torch
 
-from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, OPD_MODES, VARIANTS,
-                        build_kernel, check_tables, gen_trace_cuda,
-                        gen_trace_plain, zernike_table)
+from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, GRAD_POL_LIBS, OPD_MODES,
+                        VARIANTS, build_kernel, check_tables, gen_trace_cuda,
+                        gen_trace_plain, polar_words, zernike_table)
 
 __all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
 
 
 def gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot, flags,
-                        final_prop: bool, opd_mode: str = "plain"):
+                        final_prop: bool, opd_mode: str = "plain",
+                        polar=None):
     """(dgen [F, 16], dconsts [W, S, 32], dacoef [S, C], dPx [n], dPy [n])
     for the cotangents ``cot`` [8, W, F, n] of K1's outputs, by autograd
-    through the plain version in the OPD mode ``opd_mode``."""
+    through the plain version in the OPD mode ``opd_mode`` with the launch
+    polarization ``polar`` (a ``PolarLaunch`` or None)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True)
                   for t in (gen, consts, acoef, Px, Py)]
-        out = gen_trace_plain(*leaves, flags, final_prop, opd_mode)
+        out = gen_trace_plain(*leaves, flags, final_prop, opd_mode, polar)
         grads = torch.autograd.grad(out, leaves, cot, allow_unused=True)
     return tuple(torch.zeros_like(t) if d is None else d
                  for t, d in zip(leaves, grads))
@@ -49,7 +51,7 @@ def gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot, flags,
 
 def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
                        final_prop: bool, pupil_grad: bool = True,
-                       opd_mode: str = "plain"):
+                       opd_mode: str = "plain", polar=None):
     """Launch the CUDA K2 on the current stream; returns what
     ``gen_trace_bwd_plain`` returns, with dPx/dPy None unless
     ``pupil_grad``. Raises on anything the kernel does not take."""
@@ -58,7 +60,8 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
     if tuple(cot.shape) != (8, W, F, n) or n < 1:
         raise ValueError("cot must be [8, W, F, n] with n >= 1")
     dev = Px.device
-    lib = build_kernel(GRAD_LIBS[opd_mode])
+    lib = build_kernel((GRAD_LIBS if polar is None else GRAD_POL_LIBS)[
+        opd_mode])
     words = (ctypes.c_int32 * S)(*words)
 
     def empty(*shape):
@@ -84,36 +87,41 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
             cot.data_ptr(), part.data_ptr(),
             *ptrs, dgen.data_ptr(), dconsts.data_ptr(), dacoef.data_ptr(),
             *outs, ctypes.addressof(words), S, F, W, C, n,
-            int(bool(final_prop)), mode, stream, ctypes.byref(variant))
+            int(bool(final_prop)), mode, polar_words(polar), stream,
+            ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"gen_grad kernel launch failed: CUDA error {err}")
     gen_trace_bwd_cuda.launches += 1
     gen_trace_bwd_cuda.launches_by_mode[opd_mode] += 1
     gen_trace_bwd_cuda.launches_by_variant[VARIANTS[variant.value]] += 1
+    gen_trace_bwd_cuda.launches_polarized += polar is not None
     return dgen, dconsts, dacoef, dpx, dpy
 
 
 gen_trace_bwd_cuda.launches = 0
 gen_trace_bwd_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
 gen_trace_bwd_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+gen_trace_bwd_cuda.launches_polarized = 0
 
 
 class GenTrace(torch.autograd.Function):
     """K1 with K2 as its backward: ``GenTrace.apply(gen, consts, acoef, Px,
-    Py, flags, final_prop, opd_mode)`` returns K1's [8, W, F, n] outputs."""
+    Py, flags, final_prop, opd_mode, polar)`` returns K1's [8, W, F, n]
+    outputs (``polar`` a ``PolarLaunch`` or None)."""
 
     @staticmethod
     def forward(ctx, gen, consts, acoef, Px, Py, flags, final_prop,
-                opd_mode="plain"):
+                opd_mode="plain", polar=None):
         ctx.save_for_backward(gen, consts, acoef, Px, Py)
         ctx.flags = flags
         ctx.final_prop = final_prop
         ctx.opd_mode = opd_mode
+        ctx.polar = polar
         if Px.device.type == "cuda":
             return gen_trace_cuda(gen, consts, acoef, Px, Py, flags,
-                                  final_prop, opd_mode)
+                                  final_prop, opd_mode, polar)
         return gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop,
-                               opd_mode)
+                               opd_mode, polar)
 
     @staticmethod
     def backward(ctx, cot):
@@ -124,10 +132,11 @@ class GenTrace(torch.autograd.Function):
             grads = gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot,
                                        ctx.flags, ctx.final_prop,
                                        pupil_grad=need[3] or need[4],
-                                       opd_mode=ctx.opd_mode)
+                                       opd_mode=ctx.opd_mode,
+                                       polar=ctx.polar)
         else:
             grads = gen_trace_bwd_plain(gen, consts, acoef, Px, Py, cot,
                                         ctx.flags, ctx.final_prop,
-                                        ctx.opd_mode)
+                                        ctx.opd_mode, ctx.polar)
         return tuple(g if need[i] else None
-                     for i, g in enumerate(grads)) + (None, None, None)
+                     for i, g in enumerate(grads)) + (None,) * 4

@@ -1,7 +1,7 @@
 """K1 in the port: fused ray generation + surface stack + image propagation
 (counterpart of ``optiland_pr_tpu/kernels/pallas_trace.py::_pallas_gen_trace_2d``
 and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
-(d) and (g):
+(d), (e) and (g):
 - (a) conic and plane surfaces that refract or reflect, with absorption in
   the pre-material;
 - (b) tilted and decentered surfaces (localize before the intersection,
@@ -21,6 +21,14 @@ and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
   at the constant axial distance sqrt(1 - sin_u^2) / sin_u, and the seven
   closed-form apodizations on the launch intensity (gen columns 10-15,
   ``LAUNCH_COLUMNS``, read at run time in every variant);
+- (e), polarization: a polarized launch (``model.polarization`` other than
+  "ignore", ``polar_launch``) carries one or two real E-vectors per ray
+  through the refract/reflect step of every surface, by the surface's
+  rank-structured Jones update (a Fresnel coating's real s/p coefficients,
+  or the bare rotation from k0 to k1), and the final intensity is their
+  scaled squared norm; the vectors are not rotated by the tilts, and the
+  intensity replaces the aperture, coating and absorption factors, as the
+  JAX kernel's do;
 - (g), the OPD precision modes (``OPD_MODES``): "kahan", the compensated
   sum of the path lengths, and "split", the split-OPD accumulation of
   untilted conic/plane stacks (``supports_split_opd``): z is carried local
@@ -36,10 +44,13 @@ The module holds
 - ``gen_trace_plain``: the plain PyTorch version of the kernel on the packed
   tables, in the kernel's operation order;
 - ``gen_trace_cuda``: the wrapper of the hand-written CUDA kernel
-  ``csrc/gen_trace.cu``, built with nvcc at first use and bound with ctypes;
+  ``csrc/gen_trace.cu`` (its polarized instances in a library of their own,
+  ``csrc/gen_trace_pol.cu``), built with nvcc at first use and bound with
+  ctypes;
 - ``build_kernel``/``build_kernels``: the nvcc build of the port's CUDA
-  sources (K1 here, K2, one library per OPD mode, in ``gen_grad.py``, K3 in
-  ``trace_conic.py``, K4 in ``huygens.py``);
+  sources (K1 here, K2, one library per OPD mode, in ``gen_grad.py``, each
+  with a polarized library beside it, K3 in ``trace_conic.py``, K4 in
+  ``huygens.py``);
 - ``gen_trace_conic``, the counterpart of ``pallas_gen_trace_conic``: a CPU
   tensor takes the plain version, a CUDA tensor the kernel, and nothing
   falls back. Inputs that require grad go through ``gen_grad.GenTrace``,
@@ -73,10 +84,12 @@ from ..system.model import OpticModel, positions_from_params
 
 __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
            "model_flags", "NEWTON_ITERS", "OPD_MODES", "GRAD_LIBS",
+           "GRAD_POL_LIBS",
            "ZERNIKE_BASES", "VARIANTS", "SurfaceFlags", "zernike_table",
            "n_coefs",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
            "gen_trace_plain", "gen_trace_cuda", "gen_trace_conic",
+           "PolarLaunch", "polar_launch",
            "split_consts", "axial_base", "check_tables", "build_kernel",
            "build_kernels", "BUILD_LOG"]
 
@@ -102,9 +115,14 @@ OPD_MODES = ("plain", "kahan", "split")
 # the flag word of a surface (csrc/gen_trace_common.cuh): bits 0-5 the
 # booleans, bits 6-9 the sag kind, bits 10-15 nu (the terms of a sag, the
 # x size of a coefficient grid), bits 16-21 nv (a grid's y size), bits
-# 22-23 the Zernike basis
+# 22-23 the Zernike basis, bit 24 a Fresnel coating (read by a polarized
+# launch only)
 FLAG_PLANE, FLAG_REFL, FLAG_ABSORB = 1, 2, 4
 FLAG_CS, FLAG_AP, FLAG_COAT = 8, 16, 32
+FLAG_FRESNEL = 1 << 24
+# a polarized launch's fallback of the s basis: below |k0 x n|^2 = 1e-12
+# (normal incidence) s = k0 x (1, 0, 0) (pallas_trace.py:744-749)
+POL_FALLBACK = 1e-12
 GKIND_SHIFT, NU_SHIFT, NV_SHIFT, BASIS_SHIFT = 6, 10, 16, 22
 GKIND_MASK, NTERM_MASK, BASIS_MASK = 15, 63, 3
 _GKIND_CODES = {"conic": 0, "even": 1, "odd": 2, "poly": 3, "cheb": 4,
@@ -167,10 +185,11 @@ def supports_model(model: OpticModel) -> bool:
     plane, even- or odd-aspheric, XY-polynomial, Chebyshev, biconic,
     toroidal, Zernike, Forbes Qbfs or Q2D or thin Fresnel surface that
     refracts or reflects, tilted or not, with no aperture or a radial or
-    offset-radial one, no coating or a simple one, at most ``MAX_TERMS``
-    sag coefficients (a Q2D surface: basis-changed ones, of orders |m| up to
-    ``MAX_TERMS``), and the stack fits the kernel's flag table. A Fresnel
-    coating (the polarization chain, sub-slice (e)) is refused."""
+    offset-radial one, no coating, a simple or a Fresnel one, at most
+    ``MAX_TERMS`` sag coefficients (a Q2D surface: basis-changed ones, of
+    orders |m| up to ``MAX_TERMS``), and the stack fits the kernel's flag
+    table. A Fresnel coating acts on a polarized launch's E-vectors
+    (sub-slice (e)) and leaves an unpolarized one as it is."""
     if model.num_surfaces - 1 > MAX_SURFACES:
         return False
     for spec in model.surfaces[1:]:
@@ -186,7 +205,8 @@ def supports_model(model: OpticModel) -> bool:
         if spec.aperture is not None and spec.aperture.kind not in (
                 "radial", "offset_radial"):
             return False
-        if spec.coating is not None and spec.coating.kind != "simple":
+        if spec.coating is not None and spec.coating.kind not in ("simple",
+                                                                  "fresnel"):
             return False
     return True
 
@@ -277,7 +297,8 @@ def _flag_words(flags) -> list:
     words = []
     for (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv,
          gextra) in flags:
-        if (coat not in ("none", "simple") or gkind not in _GKIND_CODES
+        if (coat not in ("none", "simple", "fresnel")
+                or gkind not in _GKIND_CODES
                 or not 0 <= nu <= NTERM_MASK or not 0 <= nv <= NTERM_MASK
                 or n_coefs(gkind, nu, nv) > MAX_TERMS
                 or (gkind == "q2d" and (gextra is None or _q2d_count(gextra)
@@ -290,6 +311,7 @@ def _flag_words(flags) -> list:
                      | (FLAG_ABSORB if absorbing else 0)
                      | (FLAG_CS if has_cs else 0) | (FLAG_AP if has_ap else 0)
                      | (FLAG_COAT if coat == "simple" else 0)
+                     | (FLAG_FRESNEL if coat == "fresnel" else 0)
                      | (_GKIND_CODES[gkind] << GKIND_SHIFT)
                      | (nu << NU_SHIFT) | (nv << NV_SHIFT)
                      | (basis << BASIS_SHIFT))
@@ -659,6 +681,145 @@ def apod_weight(code: int, p, px, py):
     raise ValueError(f"unknown apodization code {code}")
 
 
+class PolarLaunch(NamedTuple):
+    """A polarized launch as the kernels take it (``pallas_trace.py::
+    _polar_layout`` :1922 and ``_polar_init`` :796-828): ``n_ev`` (1 or 2)
+    real E-vectors per ray, each ``a`` s + ``b`` p in the launch basis for
+    (a, b) in ``coefs``, and the final intensity ``scale`` x the sum of
+    their squared norms. A linear state is one vector; a complex one its
+    real and imaginary projections; the unpolarized average the two linear
+    states at scale 0.5. Static per call: no gradient flows to it."""
+    n_ev: int
+    scale: float
+    coefs: tuple
+
+    def words(self) -> list:
+        """[n_ev, scale, a0, b0, a1, b1], the kernels' argument."""
+        flat = [v for ab in self.coefs for v in ab]
+        return [float(self.n_ev), self.scale] + flat + [0.0] * (4 - len(flat))
+
+
+def polar_launch(state):
+    """The ``PolarLaunch`` of a launch polarization (``model.polarization``):
+    None for "ignore" (no chain); any other string, or a state that is not
+    polarized, the unpolarized average; a ``PolarizationState``'s real and
+    imaginary projections exr + i exi, eyr + i eyi otherwise."""
+    if state is None or (isinstance(state, str) and state == "ignore"):
+        return None
+    if isinstance(state, str) or not state.is_polarized:
+        return PolarLaunch(2, 0.5, ((1.0, 0.0), (0.0, 1.0)))
+    exr = state.Ex * math.cos(state.phase_x)
+    exi = state.Ex * math.sin(state.phase_x)
+    eyr = state.Ey * math.cos(state.phase_y)
+    eyi = state.Ey * math.sin(state.phase_y)
+    if exi == 0.0 and eyi == 0.0:
+        return PolarLaunch(1, 1.0, ((exr, eyr),))
+    return PolarLaunch(2, 1.0, ((exr, eyr), (exi, eyi)))
+
+
+def _polar_init(polar, L, M, N, weight):
+    """The launch E-vectors (``pallas_trace.py::_polar_init`` :796): the
+    basis p = k x (1, 0, 0) / |.| = (0, N, -M) / |.|, s = p x k, each vector
+    a s + b p, scaled by sqrt(w) under an apodization ``weight`` w (the
+    double where at w = 0, :2039-2050), in the kernel's order
+    (``csrc/gen_trace_common.cuh::polar_init``)."""
+    pxv, pyv, pzv = torch.zeros_like(L), N, -M
+    m2 = pyv * pyv + pzv * pzv
+    inv = torch.reciprocal(_sqrt(torch.where(m2 > 0, m2, 1.0)))
+    pxv, pyv, pzv = pxv * inv, pyv * inv, pzv * inv
+    sxv = pyv * N - pzv * M
+    syv = pzv * L - pxv * N
+    szv = pxv * M - pyv * L
+    evecs = [(a * sxv + b * pxv, a * syv + b * pyv, a * szv + b * pzv)
+             for a, b in polar.coefs]
+    if weight is not None:
+        pos = weight > 0
+        sa = torch.where(pos, _sqrt(torch.where(pos, weight, 1.0)), 0.0)
+        evecs = [tuple(c * sa for c in v) for v in evecs]
+    return evecs
+
+
+def _fresnel_diag(n1, n2, cos_i, is_refl: bool):
+    """A Fresnel coating's real (js, jp, j3) at cos_i
+    (``pallas_trace.py::_fresnel_diag`` :773): the root's argument clamped at
+    eps, one shared reciprocal, and (js, -jp, -1) on a mirror."""
+    n = n2 / n1
+    sin2 = 1.0 - cos_i * cos_i
+    rad = n * n - sin2
+    root = _sqrt(torch.where(rad > _EPS, rad, _EPS))
+    n2c = n * n * cos_i
+    da = cos_i + root
+    db = n2c + root
+    inv = torch.reciprocal(da * db)
+    if is_refl:
+        return (cos_i - root) * db * inv, -((n2c - root) * da * inv), -1.0
+    return 2.0 * cos_i * db * inv, 2.0 * n * cos_i * da * inv, 1.0
+
+
+def _polar_update(evecs, k0, k1, normal, diag, refract_only: bool):
+    """One surface's update of the E-vectors (``pallas_trace.py::
+    _polar_update`` :686): E' = js (s.E) s + jp (p0.E) p1 + j3 (k0.E) k1
+    with s ~ k0 x n (``normal`` the unit normal, or "plane" for n = (0, 0,
+    +-1)), p0 = k0 x s, p1 = k1 x s and the fallback s = k0 x (1, 0, 0)
+    below |s|^2 = 1e-12 (a double where before the root); ``diag`` the
+    Fresnel (js, jp, j3) or None for 1. A bare refracting surface
+    (``refract_only``) takes the rotation about u = k0 x k1 instead,
+    E' = cos t E + u x E + u (u.E) / (1 + cos t)."""
+    L0, M0, N0 = k0
+    L1, M1, N1 = k1
+    if diag is None and refract_only:
+        ux = M0 * N1 - N0 * M1
+        uy = N0 * L1 - L0 * N1
+        uz = L0 * M1 - M0 * L1
+        ct = L0 * L1 + M0 * M1 + N0 * N1
+        inv1c = 1.0 / (1.0 + ct)
+        out = []
+        for ex, ey, ez in evecs:
+            ue = (ux * ex + uy * ey + uz * ez) * inv1c
+            out.append((ct * ex + (uy * ez - uz * ey) + ux * ue,
+                        ct * ey + (uz * ex - ux * ez) + uy * ue,
+                        ct * ez + (ux * ey - uy * ex) + uz * ue))
+        return out
+    if normal == "plane":
+        sx, sy, sz = -M0, L0, torch.zeros_like(L0)
+        mag2 = L0 * L0 + M0 * M0
+    else:
+        nx, ny, nz = normal
+        sx = M0 * nz - N0 * ny
+        sy = N0 * nx - L0 * nz
+        sz = L0 * ny - M0 * nx
+        mag2 = sx * sx + sy * sy + sz * sz
+    fb = mag2 < POL_FALLBACK
+    sx = torch.where(fb, 0.0, sx)
+    sy = torch.where(fb, N0, sy)
+    sz = torch.where(fb, -M0, sz)
+    mag2 = torch.where(fb, N0 * N0 + M0 * M0, mag2)
+    inv = torch.reciprocal(_sqrt(torch.where(mag2 > 0, mag2, 1.0)))
+    sx, sy, sz = sx * inv, sy * inv, sz * inv
+    p0x, p0y, p0z = M0 * sz - N0 * sy, N0 * sx - L0 * sz, L0 * sy - M0 * sx
+    p1x, p1y, p1z = M1 * sz - N1 * sy, N1 * sx - L1 * sz, L1 * sy - M1 * sx
+    out = []
+    for ex, ey, ez in evecs:
+        ds = sx * ex + sy * ey + sz * ez
+        dp = p0x * ex + p0y * ey + p0z * ez
+        dk = L0 * ex + M0 * ey + N0 * ez
+        if diag is not None:
+            ds, dp, dk = diag[0] * ds, diag[1] * dp, diag[2] * dk
+        out.append((ds * sx + dp * p1x + dk * L1,
+                    ds * sy + dp * p1y + dk * M1,
+                    ds * sz + dp * p1z + dk * N1))
+    return out
+
+
+def _polar_intensity(evecs, scale: float):
+    """scale x sum |E|^2 (``pallas_trace.py::_polar_intensity`` :830)."""
+    total = None
+    for ex, ey, ez in evecs:
+        sq = ex * ex + ey * ey + ez * ez
+        total = sq if total is None else total + sq
+    return total * scale
+
+
 def _eps_guard(v):
     """|v| > eps ? v : (v >= 0 ? eps : -eps), eps in v's dtype."""
     return torch.where(torch.abs(v) > _EPS, v,
@@ -990,11 +1151,12 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
     surface_step``) in the kernels' operation order: ``flag`` is the
     surface's ``SurfaceFlags``, ``c(j)`` its constant column j, ``coefs`` its
     sag coefficients, ``state`` (x, y, z, L, M, N, intensity, opd, opd_c,
-    valid) the rays before it, ``sigma`` the static propagation sign (read
-    by the split mode only); returns the state after it."""
+    valid) the rays before it, followed under a polarized launch by the
+    list of E-vectors, ``sigma`` the static propagation sign (read by the
+    split mode only); returns the state after it."""
     (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv,
      gextra) = flag
-    x, y, z, L, M, N, inten, opd, opd_c, valid = state
+    x, y, z, L, M, N, inten, opd, opd_c, valid, *pol = state
     split = opd_mode == "split"
     ri, conic, pos_z, n1, n2, alpha = (c(j) for j in range(6))
     fresnel = gkind in FRESNEL_KINDS
@@ -1074,6 +1236,9 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
         inten = inten * ((r2a >= c(20)) & (r2a <= c(21))).to(inten.dtype)
 
     conic_like = gkind in ("conic", "fresnel_zone")
+    k0 = (L, M, N)              # the local directions before the interaction
+    if conic_like and is_plane:
+        cos_i, normal = torch.abs(N), "plane"
     if conic_like and is_plane and is_refl:
         N = -N
     elif conic_like and is_plane:
@@ -1099,6 +1264,7 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
                                        + 1.0))
         nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
         dot = L * nx + M * ny + N * nz
+        cos_i, normal = torch.abs(dot), (nx, ny, nz)
         if is_refl:
             two_dot = 2.0 * dot
             L, M, N = L - two_dot * nx, M - two_dot * ny, N - two_dot * nz
@@ -1110,6 +1276,15 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
             w = torch.sign(dot) * root_r - u * dot
             L, M, N = u * L + nx * w, u * M + ny * w, u * N + nz * w
             valid = valid & ok_r
+    # the polarization chain, on the local directions before and after the
+    # interaction, before the scalar coating and the globalize (the
+    # E-vectors are not rotated into the global frame, pallas_trace.py:
+    # 1517-1519, 1724-1731)
+    if pol:
+        diag = _fresnel_diag(c(3), c(4), cos_i, is_refl) \
+            if coat == "fresnel" else None
+        pol = [_polar_update(pol[0], k0, (L, M, N), normal, diag,
+                             refract_only=not is_refl)]
     if coat == "simple":
         inten = inten * c(6)
 
@@ -1123,11 +1298,11 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
                    r[6] * L + r[7] * M + r[8] * N)
     elif not split:
         z = z + pos_z
-    return x, y, z, L, M, N, inten, opd, opd_c, valid
+    return (x, y, z, L, M, N, inten, opd, opd_c, valid, *pol)
 
 
 def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
-                    opd_mode: str = "plain"):
+                    opd_mode: str = "plain", polar=None):
     """Plain PyTorch K1 on the packed tables: every elementwise operation of
     ``csrc/gen_trace.cu`` in the same order, broadcast over [W, F, n].
     ``flags`` are ``model_flags``'; ``acoef`` [S, C] holds the sag
@@ -1136,7 +1311,8 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
 
     In the "split" mode z is local to the last vertex (also in the output),
     column 27 holds each surface's vertex gap (surface 1's from the launch
-    plane), and the OPD output is the deviation from the axial base."""
+    plane), and the OPD output is the deviation from the axial base.
+    ``polar``: a ``PolarLaunch`` (sub-slice (e)), or None unpolarized."""
     W, S = consts.shape[0], consts.shape[1]
     F, n = gen.shape[0], Px.shape[0]
     if len(flags) != S:
@@ -1178,6 +1354,8 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     sigma = 1.0                 # the static propagation sign
 
     state = (x, y, z, L, M, N, inten, opd, opd_c, valid)
+    if polar is not None:
+        state += (_polar_init(polar, L, M, N, weight),)
     for k, flag in enumerate(flags):
         flag = SurfaceFlags(*flag)
 
@@ -1188,7 +1366,9 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
         state = _surface_plain(flag, c, coefs, state, sigma, opd_mode)
         if flag.is_refl:
             sigma = -sigma
-    x, y, z, L, M, N, inten, opd, opd_c, valid = state
+    x, y, z, L, M, N, inten, opd, opd_c, valid, *pol = state
+    if pol:     # the chain's intensity replaces the traced one
+        inten = _polar_intensity(pol[0], polar.scale)
 
     if final_prop:
         t_img = g(6)
@@ -1220,13 +1400,15 @@ def _find_nvcc() -> str:
         "PATH or under CUDA_HOME/bin.")
 
 
-# each library's C entry points: (name, argument types, result type)
+# each library's C entry points: (name, argument types, result type). K1's
+# polarized instances (sub-slice (e)) are a library of their own,
+# csrc/gen_trace_pol.cu, with the same entry point
 _SIGNATURES = {
-    "gen_trace": [
-        ("gen_trace_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int)], ctypes.c_int)],
-}
+    lib: [("gen_trace_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+              ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
+              ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
+    for lib in ("gen_trace", "gen_trace_pol")}
 # K3 (csrc/trace.cu, kernels/trace_conic.py) and K4 (csrc/huygens.cu,
 # kernels/huygens.py)
 _SIGNATURES["trace"] = [
@@ -1239,16 +1421,27 @@ _SIGNATURES["huygens"] = [
                         ctypes.c_int, ctypes.c_void_p,
                         ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
 # K2: one library per OPD mode (csrc/gen_grad.cu, gen_grad_kahan.cu,
-# gen_grad_split.cu), one signature
+# gen_grad_split.cu) and per launch (the polarized instances in
+# gen_grad_pol.cu, gen_grad_pol_kahan.cu, gen_grad_pol_split.cu), one
+# signature
 GRAD_LIBS = {"plain": "gen_grad", "kahan": "gen_grad_kahan",
              "split": "gen_grad_split"}
-for _lib in GRAD_LIBS.values():
+GRAD_POL_LIBS = {"plain": "gen_grad_pol", "kahan": "gen_grad_pol_kahan",
+                 "split": "gen_grad_pol_split"}
+for _lib in list(GRAD_LIBS.values()) + list(GRAD_POL_LIBS.values()):
     _SIGNATURES[_lib] = [
         ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
          + [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
         ("gen_grad_launch", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
+
+
+def polar_words(polar):
+    """The kernels' polarization argument: a float[6] of
+    ``PolarLaunch.words`` or None (unpolarized)."""
+    return None if polar is None else (ctypes.c_float * 6)(*polar.words())
 
 # what ptxas said about each library built in this process (-Xptxas -v:
 # registers, spills, shared memory per kernel)
@@ -1340,16 +1533,18 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
 
 
 def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
-                   opd_mode: str = "plain"):
+                   opd_mode: str = "plain", polar=None):
     """Launch the CUDA K1 on the current stream; returns [8, W, F, n]
-    float32. Raises on anything the kernel does not take."""
+    float32. ``polar``: a ``PolarLaunch``, which the polarized library
+    (``csrc/gen_trace_pol.cu``) takes. Raises on anything the kernel does
+    not take."""
     (W, S, F, n, C), words, mode = check_tables(gen, consts, acoef, Px, Py,
                                                 flags, opd_mode)
     dev = Px.device
     out = torch.empty((8, W, F, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    lib = build_kernel("gen_trace")
+    lib = build_kernel("gen_trace" if polar is None else "gen_trace_pol")
     words = (ctypes.c_int32 * S)(*words)
     stream = torch.cuda.current_stream(dev).cuda_stream
     variant = ctypes.c_int(-1)
@@ -1360,19 +1555,22 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
                                    Px.data_ptr(),
                                    Py.data_ptr(), out.data_ptr(),
                                    ctypes.addressof(words), S, F, W, C, n,
-                                   int(bool(final_prop)), mode, stream,
+                                   int(bool(final_prop)), mode,
+                                   polar_words(polar), stream,
                                    ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"gen_trace kernel launch failed: CUDA error {err}")
     gen_trace_cuda.launches += 1
     gen_trace_cuda.launches_by_mode[opd_mode] += 1
     gen_trace_cuda.launches_by_variant[VARIANTS[variant.value]] += 1
+    gen_trace_cuda.launches_polarized += polar is not None
     return out
 
 
 gen_trace_cuda.launches = 0
 gen_trace_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
 gen_trace_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+gen_trace_cuda.launches_polarized = 0
 
 
 def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
@@ -1400,7 +1598,10 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     is differentiable. Its z is global unless ``keep_local_z``, which keeps
     it local to the image vertex. ``apodization``: one of the closed-form
     profiles of ``system/apodization.py``, evaluated by the kernel on the
-    launch intensity.
+    launch intensity. The model's launch polarization (``polar_launch``)
+    goes to the kernel as it is; a polarized launch's intensity is the
+    chain's, with the apodization's weight (the JAX kernel's; the eager
+    trace of a polarized state leaves the weight out).
 
     A scalar wavelength and scalar field return ``n`` rays; a field vector
     F*n rays (field-major); a wavelength vector W*F*n rays in (wavelength,
@@ -1417,18 +1618,19 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy,
                                     apodization)
     mode = "split" if opd_split else ("kahan" if kahan else "plain")
+    polar = polar_launch(model.polarization)
     if opd_split:
         consts = split_consts(params, gen, consts)
     if any(t.requires_grad for t in (gen, consts, acoef, px, py)):
         from .gen_grad import GenTrace
         out = GenTrace.apply(gen, consts, acoef, px, py, flags, final_prop,
-                             mode)
+                             mode, polar)
     elif px.device.type == "cpu":
         out = gen_trace_plain(gen, consts, acoef, px, py, flags, final_prop,
-                              mode)
+                              mode, polar)
     else:
         out = gen_trace_cuda(gen, consts, acoef, px, py, flags, final_prop,
-                             mode)
+                             mode, polar)
     field_vec = ndim(Hx) == 1 or ndim(Hy) == 1
     scalar_wl = ndim(wavelength) == 0
     rays = rays_from_outputs(out, consts[:, 0, 7], scalar_wl, field_vec)

@@ -3,14 +3,15 @@
 - ``SimpleCoating``: a scalar intensity factor, the transmittance on a
   refracting surface and the reflectance on a mirror.
 - ``FresnelCoating``: the s/p Fresnel coefficients of the interface, applied
-  to the polarization chain. The port has no polarization chain yet, so it is
-  registered for the builder and refused by the kernel's ``supports_model``;
-  the eager trace, like the JAX package's without a polarized launch, leaves
-  the intensity as it is.
+  as a per-ray Jones matrix to the polarization chain of a polarized trace
+  (``Optic.set_polarization``); without a polarized launch it leaves the
+  rays as they are, as in the JAX package.
 
 A coating is a static node; its numbers live in the surface's parameters.
 """
 from __future__ import annotations
+
+from ..core.polarization import fresnel_jones
 
 __all__ = ["CoatingDef", "SimpleCoating", "FresnelCoating"]
 
@@ -41,7 +42,12 @@ class SimpleCoating(CoatingDef):
 
 
 class FresnelCoating(CoatingDef):
-    """Uncoated-interface Fresnel interaction (polarization-dependent)."""
+    """Uncoated-interface Fresnel interaction (polarization-dependent): the
+    per-ray Jones matrix of the s/p amplitude coefficients of the interface
+    between the surface's pre- and post-material."""
 
     kind = "fresnel"
     polarization_dependent = True
+
+    def jones(self, n1, n2, aoi, reflect: bool):
+        return fresnel_jones(n1, n2, aoi, reflect)

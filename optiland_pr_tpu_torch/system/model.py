@@ -2,8 +2,9 @@
 
 - ``OpticModel`` / ``SurfaceDef``: static structure (geometry types, material
   models, stop index, field and wavelength counts, an object-space
-  telecentric launch). Every surface refracts or reflects; thin-lens,
-  grating and phase interactions and polarization come with later slices.
+  telecentric launch, the launch polarization). Every surface refracts or
+  reflects; thin-lens, grating and phase interactions come with later
+  slices.
 - the parameter tree: every number (radii, conics, asphere coefficients,
   thicknesses, material data, aperture extents, coating factors, tilts and
   decenters, field coordinates, wavelengths) as tensors, so autograd flows
@@ -20,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.polarization import PolarizationState
 from ..geometry import Geometry
 from ..materials.base import MaterialModel
 from .apertures import ApertureDef
@@ -55,6 +57,8 @@ class OpticModel:
     primary_wavelength_idx: int = 0
     obj_space_telecentric: bool = False
     _object_infinite: bool = True
+    # "ignore" (no chain), "unpolarized" or a PolarizationState
+    polarization: str | PolarizationState = "ignore"
 
     @property
     def num_surfaces(self) -> int:

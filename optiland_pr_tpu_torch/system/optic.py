@@ -2,8 +2,9 @@
 for standard, plane, even/odd aspheric, XY-polynomial, Chebyshev, biconic,
 toroidal, Zernike, Forbes Qbfs/Q2D and thin Fresnel surfaces that refract
 or reflect, with
-radial apertures, simple coatings and tilts/decenters), with pickups and
-solves, an object-space telecentric launch and a pupil apodization.
+radial apertures, simple and Fresnel coatings and tilts/decenters), with
+pickups and solves, an object-space telecentric launch, a pupil apodization
+and a launch polarization.
 
 ``Optic`` is a mutable host-side builder; ``build(device, dtype)`` compiles it
 into a static ``OpticModel`` and a parameter tree of tensors on ``device``.
@@ -85,6 +86,7 @@ class Optic:
         self.wavelengths: list[float] = []
         self.primary_wavelength_idx: int = 0
         self.apodization = None         # callable (Px, Py) -> intensity
+        self.polarization = "ignore"    # | "unpolarized" | PolarizationState
         self.constraints: list = []     # pickups and solves
         self._telecentric = False
         self._cache: dict = {}
@@ -167,6 +169,22 @@ class Optic:
         (``system/apodization.py``)."""
         self.apodization = apodization
         self._dirty()
+
+    def set_polarization(self, state):
+        """The launch polarization: "ignore" (no polarization chain, the
+        default), "unpolarized", or a ``core.polarization.PolarizationState``.
+        A polarized trace carries the Jones chain through every surface and
+        applies the Fresnel coatings' s/p coefficients; setting it drops
+        every cached build."""
+        self.polarization = state
+        self._dirty()
+
+    @property
+    def polarization_state(self):
+        """The launch ``PolarizationState``, or None for "ignore" and
+        "unpolarized"."""
+        return None if isinstance(self.polarization, str) \
+            else self.polarization
 
     def image_solve(self):
         """Move the image plane to the paraxial focus: the marginal ray's
@@ -325,6 +343,7 @@ class Optic:
             num_wavelengths=len(self.wavelengths),
             primary_wavelength_idx=self.primary_wavelength_idx,
             obj_space_telecentric=self._telecentric,
+            polarization=self.polarization,
             _object_infinite=host_isinf(self._surfaces[0]["thickness"]))
         host = {
             "surfaces": sparams,

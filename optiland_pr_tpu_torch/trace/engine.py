@@ -5,8 +5,10 @@ Every spot, operand and analysis call asks ``final_rays`` for the final ray
 state. Eligible systems are those ``supports_model`` and ``gen_eligible``
 accept (the ported surfaces and launch modes, the telecentric one among
 them), traced without apodization or with one of the seven closed-form
-profiles, which K1 evaluates itself. On a CUDA device, ``"auto"`` sends every eligible call to the
-K1 kernel (``kernels/gen_trace.py``), whose gradient is the K2 kernel
+profiles, which K1 evaluates itself, unpolarized or with any launch
+polarization (K1 carries the Jones chain, Fresnel coatings included). On a
+CUDA device, ``"auto"`` sends every eligible call to the K1 kernel
+(``kernels/gen_trace.py``), whose gradient is the K2 kernel
 (``kernels/gen_grad.py``): a merit's gradient through such a call runs K2
 on the card, never the eager trace. Everything else runs the eager trace
 (``trace/real.py``), which works on any device and is differentiable by
@@ -101,6 +103,8 @@ def final_rays(model, params, Hx, Hy, wavelength, Px, Py, *,
     per_wl = [real_trace.trace(model, params, Hx, Hy, w, Px, Py,
                                final_prop=final_prop,
                                apodization=apodization) for w in wl]
-    return type(per_wl[0])(**{
-        f: torch.cat([getattr(r, f).reshape(-1) for r in per_wl])
-        for f in per_wl[0].__dataclass_fields__})
+    out = {f: torch.cat([getattr(r, f).reshape(-1) for r in per_wl])
+           for f in per_wl[0].__dataclass_fields__ if f != "p"}
+    if per_wl[0].p is not None:
+        out["p"] = torch.cat([r.p.reshape(-1, 3, 3) for r in per_wl])
+    return type(per_wl[0])(**out)

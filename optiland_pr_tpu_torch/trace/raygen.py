@@ -131,12 +131,14 @@ def _ray_origins(model: OpticModel, params, par: Paraxial, Hx, Hy, Px, Py,
 
 
 def generate_rays(model: OpticModel, params, Hx, Hy, Px, Py,
-                  wavelength, apodization=None) -> Rays:
+                  wavelength, apodization=None, polarized: bool = False
+                  ) -> Rays:
     """Launch rays aimed at the entrance pupil, or for an object-space
     telecentric system parallel to the axis from each object point's pupil
     sample, at the axial distance sqrt(1 - sin_u^2) / sin_u with sin_u the
     object NA; ``apodization`` (a callable of (Px, Py)) sets the launch
-    intensity."""
+    intensity; ``polarized`` starts each ray's polarization chain at the
+    identity."""
     par = Paraxial(model, params)
     dt, dev = Px.dtype, Px.device
     Hx = torch.as_tensor(Hx, dtype=dt, device=dev)
@@ -169,4 +171,4 @@ def generate_rays(model: OpticModel, params, Hx, Hy, Px, Py,
         else apodization(Px, Py)
     wl = torch.as_tensor(wavelength, dtype=dt, device=dev).expand(Px.shape)
     return new_rays(x0, y0, z0, L, M, N, intensity=intensity,
-                    wavelength=wl, dtype=dt, device=dev)
+                    wavelength=wl, polarized=polarized, dtype=dt, device=dev)

@@ -1,7 +1,10 @@
 """Eager real-ray trace (port of ``optiland_pr_tpu/trace/real.py``).
 
 This is the port's CPU path, the reference every other engine is held
-against, and differentiable by autograd. The surface loop runs eagerly over
+against, and differentiable by autograd. A polarized trace
+(``model.polarization`` other than "ignore") carries each ray's 3x3
+polarization chain through the refract/reflect step of every surface and
+takes the final intensity from it. The surface loop runs eagerly over
 the static surface list; ray validity is carried by a mask, never by dropping
 rays.
 
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rays as R
+from ..core.polarization import apply_polarization_update, update_intensity
 from ..core.transforms import globalize, localize, rotation_matrix
 from ..system.model import OpticModel, positions_from_params
 from .raygen import generate_rays, vig_factor
@@ -75,19 +79,33 @@ def trace_surface(model: OpticModel, params, k: int, rays: R.Rays,
 
     # ---- refract or reflect -------------------------------------------------
     nx, ny, nz = spec.geometry.normal(sp["geom"], rays.x, rays.y)
+    L0, M0, N0 = rays.L, rays.M, rays.N      # the directions before it
     if spec.is_reflective:
         rays, ok_i = R.reflect(rays, nx, ny, nz)
+        n2 = n1
     else:
         mat2, mp2 = _post_material(model, params, k)
-        rays, ok_i = R.refract(rays, nx, ny, nz, n1, mat2.n(mp2, wl))
+        n2 = mat2.n(mp2, wl)
+        rays, ok_i = R.refract(rays, nx, ny, nz, n1, n2)
     valid = valid & ok_i
 
-    # scalar intensity coating, after the interaction; a polarization-
-    # dependent coating acts on the polarization chain, which is not ported
+    # scalar intensity coating, after the interaction
     coating = spec.coating
     if coating is not None and not coating.polarization_dependent:
         factor = coating.intensity_factor(sp["coating"], spec.is_reflective)
         rays = rays.replace(intensity=rays.intensity * factor)
+
+    # the polarization chain, in the surface's frame (a Fresnel coating's
+    # Jones matrix at the angle of incidence, else the bare rotation)
+    if rays.p is not None:
+        jones = None
+        if coating is not None and coating.polarization_dependent:
+            _, _, _, cosi = R.align_normal(L0, M0, N0, nx, ny, nz)
+            aoi = torch.arccos(torch.clamp(cosi, -1.0, 1.0))
+            jones = coating.jones(n1, n2, aoi, spec.is_reflective)
+        rays = rays.replace(p=apply_polarization_update(
+            rays.p, L0, M0, N0, rays.L, rays.M, rays.N, jones,
+            normal=(nx, ny, nz)))
 
     if spec.has_tilt_decenter:
         x, y, z, L, M, N = globalize(Rm, cs["dx"], cs["dy"], tz + cs["dz"],
@@ -145,14 +163,30 @@ def trace(model: OpticModel, params, Hx, Hy, wavelength, Px, Py,
     Hx, Hy = torch.broadcast_tensors(Hx, Hy)
     P = Px.shape[0]
     F = Hx.shape[0]
-    rays = generate_rays(model, params, Hx.repeat_interleave(P),
-                         Hy.repeat_interleave(P), Px.repeat(F), Py.repeat(F),
-                         wavelength, apodization=apodization)
+    launch = generate_rays(model, params, Hx.repeat_interleave(P),
+                           Hy.repeat_interleave(P), Px.repeat(F),
+                           Py.repeat(F), wavelength, apodization=apodization,
+                           polarized=model.polarization != "ignore")
     wl = torch.as_tensor(wavelength, dtype=dt, device=dev)
-    rays = trace_system(model, params, rays, wl_scalar=wl)
+    rays = trace_system(model, params, launch, wl_scalar=wl)
     if final_prop:
         rays = _final_image_propagation(params, rays)
-    return rays
+    return _finalize_polarization(model, rays, launch)
+
+
+def _finalize_polarization(model: OpticModel, rays: R.Rays, launch: R.Rays):
+    """The intensity from the polarization chain and the launch
+    (``core/polarization.py::update_intensity``); it replaces the traced
+    intensity, aperture and coating factors included, as the reference's
+    does. A polarized state's intensity leaves the launch intensity (an
+    apodization) out, as the JAX package's eager trace does; its kernel
+    keeps it (``kernels/gen_trace.py``)."""
+    if rays.p is None or model.polarization == "ignore":
+        return rays
+    state = None if isinstance(model.polarization, str) \
+        else model.polarization
+    return rays.replace(intensity=update_intensity(
+        rays.p, state, launch.intensity, launch.L, launch.M, launch.N))
 
 
 def trace_generic(model: OpticModel, params, Hx, Hy, Px, Py, wavelength):
@@ -168,9 +202,12 @@ def trace_generic(model: OpticModel, params, Hx, Hy, Px, Py, wavelength):
     Hx, Hy, Px, Py = torch.broadcast_tensors(as1d(Hx), as1d(Hy), as1d(Px),
                                              as1d(Py))
     vx, vy = vig_factor(model, params, Hx, Hy)
-    rays = generate_rays(model, params, Hx, Hy, Px * (1 - vx),
-                         Py * (1 - vy), wavelength)
+    launch = generate_rays(model, params, Hx, Hy, Px * (1 - vx),
+                           Py * (1 - vy), wavelength,
+                           polarized=model.polarization != "ignore")
     wl = torch.as_tensor(wavelength, dtype=dt, device=dev)
-    rays = trace_system(model, params, rays,
+    rays = trace_system(model, params, launch,
                         wl_scalar=wl if wl.ndim == 0 else None)
-    return _final_image_propagation(params, rays)
+    return _finalize_polarization(model, _final_image_propagation(params,
+                                                                  rays),
+                                  launch)

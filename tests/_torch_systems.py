@@ -9,7 +9,8 @@ import torch
 
 import optiland_pr_tpu.kernels.pallas_trace as jpt
 from chip_smoke import (FREEFORM_KW, bench_freeform, freeform_singlet,
-                        zoned_concentrator)
+                        mirror_relay, polarized_double_gauss,
+                        polarized_doublet, zoned_concentrator)
 import optiland_pr_tpu.samples as jsamples
 import optiland_pr_tpu_torch.samples as tsamples
 from optiland_pr_tpu.system import apertures as japertures
@@ -278,6 +279,32 @@ def builders(name):
     if name in ("TiltedSinglet", "CoatedSinglet", "OddAsphereSinglet"):
         return _widened(name), getattr(tsamples, name)
     return getattr(jsamples, name), getattr(tsamples, name)
+
+
+# the launch states of the polarized systems: linear along x, circular
+# (Ey a quarter wave behind), and the unpolarized average
+POLARIZATION_STATES = {"linear": dict(is_polarized=True, Ex=1.0, Ey=0.0),
+                       "circular": dict(is_polarized=True, Ex=1.0, Ey=1.0,
+                                        phase_y=math.pi / 2),
+                       "unpolarized": None}
+
+
+def polarized_builders(name, state="linear"):
+    """(JAX builder, port builder) of the polarized system ``name``: the
+    JAX package's polarized double Gauss ("DoubleGauss",
+    examples/double_gauss_polarized.py), the JAX gradient suite's coated
+    doublet ("Doublet") or its kernel suite's coated mirror relay
+    ("MirrorRelay"), with the launch ``state`` of
+    ``POLARIZATION_STATES``."""
+    from optiland_pr_tpu.core.polarization import PolarizationState as JPS
+    from optiland_pr_tpu_torch.core.polarization import \
+        PolarizationState as TPS
+    kw = POLARIZATION_STATES[state]
+    js, ts = ("unpolarized", "unpolarized") if kw is None else \
+        (JPS(**kw), TPS(**kw))
+    build = {"DoubleGauss": polarized_double_gauss,
+             "Doublet": polarized_doublet, "MirrorRelay": mirror_relay}[name]
+    return (lambda: build(JOptic, js)), (lambda: build(TOptic, ts))
 
 
 def jax_flags_as_port(flags) -> tuple:

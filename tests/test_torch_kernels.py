@@ -208,12 +208,15 @@ def test_engine_routing_on_cpu():
 
 
 def test_ineligible_systems_are_refused():
-    """A Fresnel coating (the polarization chain, a later sub-slice) keeps a
-    system off the kernel; the aperture and the tilt no longer do."""
+    """An asphere with more terms than the kernels' coefficient table
+    (``MAX_TERMS``) keeps a system off the kernel; the aperture, the tilt
+    and (since sub-slice (e)) a Fresnel coating no longer do."""
     lens = TOptic()
     lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
     lens.add_surface(index=1, radius=20.0, thickness=3.0, material="N-BK7",
-                     is_stop=True, aperture=8.0, coating="fresnel")
+                     is_stop=True, aperture=8.0, coating="fresnel",
+                     surface_type="even_asphere",
+                     coefficients=[0.0] * (tgt.MAX_TERMS + 1))
     lens.add_surface(index=2, radius=-20.0, thickness=30.0, ry=0.01)
     lens.add_surface(index=3)
     lens.set_aperture("EPD", 5.0)

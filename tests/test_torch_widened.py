@@ -95,25 +95,28 @@ def test_supports_model_and_flags_match_jax(name):
 
 
 def test_fresnel_coating_is_refused():
-    """A Fresnel coating needs the polarization chain (sub-slice (e)): the
-    JAX kernel takes it, the port's refuses it and the call runs eagerly."""
+    """Refused until the polarization chain (sub-slice (e)) was ported: a
+    Fresnel coating now acts on a polarized launch's chain only. Without
+    one, the kernel takes the system (the coating a flag bit that no
+    unpolarized variant reads), and the coating leaves the intensity as it
+    is in the eager trace and in K1's plain version, as in the JAX
+    package's unpolarized trace."""
     _, tb = builders("CoatedSinglet")
     lens = tb()
     lens._surfaces[1]["coating"] = "fresnel"
     lens._dirty()
     tm, tp = lens.build(device="cpu")
-    assert not tgt.supports_model(tm)
+    assert tgt.supports_model(tm)
     assert tgt.model_flags(tm, tp)[0][7] == "fresnel"
-    with pytest.raises(ValueError):
-        tgt._flag_words(tgt.model_flags(tm, tp))
-    assert resolve_engine(tm, 0.0, 0.0, "cuda") == "eager"
-    with pytest.raises(ValueError):
-        resolve_engine(tm, 0.0, 0.0, "cpu", mode="kernel")
-    # the eager trace leaves the intensity to the (unported) polarization
-    # chain, as the JAX package's unpolarized trace does
+    words = tgt._flag_words(tgt.model_flags(tm, tp))
+    assert words[0] & tgt.FLAG_FRESNEL and not words[0] & tgt.FLAG_COAT
+    assert resolve_engine(tm, 0.0, 0.0, "cuda") == "kernel"
     px, py = (torch.tensor(a, dtype=F64) for a in _pupil(16))
     rays = final_rays(tm, tp, 0.0, 0.0, 0.55, px, py)
     assert torch.allclose(rays.intensity, torch.full_like(px, 0.98))
+    with engine_override("kernel"):
+        rk = final_rays(tm, tp, 0.0, 0.0, 0.55, px.float(), py.float())
+    assert torch.allclose(rk.intensity, torch.full_like(rk.x, 0.98))
 
 
 @pytest.mark.parametrize("name", SYSTEMS)

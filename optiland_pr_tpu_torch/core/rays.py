@@ -18,7 +18,7 @@ import torch
 from ..config import default_device, default_float
 
 __all__ = ["Rays", "new_rays", "propagate", "refract", "reflect", "clip",
-           "align_normal"]
+           "align_normal", "normalize", "grating_diffract"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +79,12 @@ def propagate(rays: Rays, t, alpha=None) -> Rays:
     return out
 
 
+def normalize(rays: Rays) -> Rays:
+    """The bundle with unit direction vectors."""
+    mag = torch.sqrt(rays.L**2 + rays.M**2 + rays.N**2)
+    return rays.replace(L=rays.L / mag, M=rays.M / mag, N=rays.N / mag)
+
+
 def clip(rays: Rays, blocked) -> Rays:
     """Zero the intensity of rays where ``blocked`` is True."""
     return rays.replace(intensity=torch.where(
@@ -113,3 +119,30 @@ def reflect(rays: Rays, nx, ny, nz):
     out = rays.replace(L=rays.L - 2 * dot * nx, M=rays.M - 2 * dot * ny,
                        N=rays.N - 2 * dot * nz)
     return out, torch.ones_like(rays.L, dtype=torch.bool)
+
+
+def grating_diffract(rays: Rays, nx, ny, nz, fx, fy, fz, m, d, n1, n2,
+                     is_reflective: bool):
+    """Closed-form diffraction into order ``m`` of a grating of period
+    ``d`` (um, as the wavelength) whose grating vector (fx, fy, fz) lies in
+    the tangent plane: the tangential part of n1 k gains m lambda / d along
+    the grating vector, and the normal part is rebuilt from |k_out| = n2.
+    Returns (rays, ok): a ray with no propagating order keeps a finite
+    direction and is flagged in ``ok``."""
+    nxa, nya, nza, _ = align_normal(rays.L, rays.M, rays.N, nx, ny, nz)
+    g = m * rays.wavelength / d
+    kx, ky, kz = n1 * rays.L, n1 * rays.M, n1 * rays.N
+    kdotn = kx * nxa + ky * nya + kz * nza
+    tx = kx - kdotn * nxa + g * fx
+    ty = ky - kdotn * nya + g * fy
+    tz = kz - kdotn * nza + g * fz
+    disc = n2**2 - (tx**2 + ty**2 + tz**2)
+    ok = disc >= 0
+    kn = torch.sqrt(torch.where(ok, disc, 0.0))
+    den = n2
+    if is_reflective:
+        kn = -kn
+        den = -n2
+    out = rays.replace(L=(tx + kn * nxa) / den, M=(ty + kn * nya) / den,
+                       N=(tz + kn * nza) / den)
+    return normalize(out), ok

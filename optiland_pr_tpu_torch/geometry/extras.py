@@ -1,5 +1,5 @@
-"""The Zernike sag and the two thin Fresnel surfaces (port of the matching
-part of ``optiland_pr_tpu/geometry/extras.py``).
+"""The Zernike sag, the two thin Fresnel surfaces and the linear gratings
+(port of the matching part of ``optiland_pr_tpu/geometry/extras.py``).
 
 - ``ZernikeSag``: a conic base plus sum_j c_j Z_j(rho / norm_radius, phi) in
   the standard (ANSI), fringe or Noll basis, intersected by
@@ -8,9 +8,13 @@ part of ``optiland_pr_tpu/geometry/extras.py``).
   a ray meets it at its base plane and refracts with the parent's slope;
 - ``FresnelDesignedSag``: a flat Fresnel lens whose facet slopes are
   designed for the flat geometry, m = -sin t / (n_design - cos t) with
-  tan t = r / f; a ray meets it at its base plane.
+  tan t = r / f; a ray meets it at its base plane;
+- ``StandardGrating`` and ``PlaneGrating``: a conic or a plane carrying a
+  linear grating of ``grating_period`` (um), diffracting into
+  ``grating_order``, its grooves at ``groove_angle`` in the tangent plane
+  (``grating_vector``).
 
-The grid sag and the gratings come with later slices.
+The grid sag comes with a later slice.
 """
 from __future__ import annotations
 
@@ -22,10 +26,11 @@ from ..core.safe_math import safe_div
 from ..core.zernike import _norm_factor, _radial_coeffs, zernike_eval, \
     zernike_terms
 from .aspheres import _coefficients
-from .base import Geometry
+from .base import Geometry, conic_distance
 from .standard import _conic_sag, _conic_sag_grad
 
-__all__ = ["ZernikeSag", "FresnelZoneSag", "FresnelDesignedSag"]
+__all__ = ["ZernikeSag", "FresnelZoneSag", "FresnelDesignedSag",
+           "StandardGrating", "PlaneGrating"]
 
 
 def _zernike_slopes(zernike_type: str, coeffs, rho, phi):
@@ -148,3 +153,58 @@ class FresnelDesignedSag(Geometry):
 
     def distance(self, p, x, y, z, L, M, N):
         return safe_div(-z, N)
+
+
+class StandardGrating(Geometry):
+    """A conic surface carrying a linear grating: the period in um, the
+    grooves at ``groove_angle`` in the tangent plane."""
+
+    kind = "standard_grating"
+
+    def default_params(self, radius=math.inf, conic=0.0, grating_order=0,
+                       grating_period=1.0, groove_orientation_angle=0.0,
+                       **kw) -> dict:
+        return {"radius": float(radius), "conic": float(conic),
+                "grating_order": float(grating_order),
+                "grating_period": float(grating_period),
+                "groove_angle": float(groove_orientation_angle)}
+
+    def sag(self, p, x, y):
+        return _conic_sag(p["radius"], p["conic"], x, y)
+
+    def sag_grad(self, p, x, y):
+        return _conic_sag_grad(p["radius"], p["conic"], x, y)
+
+    def distance(self, p, x, y, z, L, M, N):
+        return conic_distance(p["radius"], p["conic"], x, y, z, L, M, N)
+
+    def grating_vector(self, p, x, y):
+        """The unit grating vector in the tangent plane, across the
+        grooves: -normalize(n x t), with the groove tangent t =
+        normalize(1, tan a, dfdx + tan a dfdy)."""
+        nx, ny, nz = self.normal(p, x, y)
+        ta = torch.tan(p["groove_angle"])
+        dfdx, dfdy = self.sag_grad(p, x, y)
+        tx = torch.ones_like(x)
+        ty = ta * torch.ones_like(x)
+        tz = dfdx + ta * dfdy
+        tmag = torch.sqrt(tx**2 + ty**2 + tz**2)
+        tx, ty, tz = tx / tmag, ty / tmag, tz / tmag
+        fx = ny * tz - nz * ty
+        fy = -nx * tz + nz * tx
+        fz = nx * ty - ny * tx
+        mag = torch.sqrt(fx**2 + fy**2 + fz**2)
+        return -fx / mag, -fy / mag, -fz / mag
+
+
+class PlaneGrating(StandardGrating):
+    """A plane carrying a linear grating."""
+
+    kind = "plane_grating"
+
+    def default_params(self, grating_order=0, grating_period=1.0,
+                       groove_orientation_angle=0.0, **kw) -> dict:
+        return super().default_params(
+            radius=math.inf, conic=0.0, grating_order=grating_order,
+            grating_period=grating_period,
+            groove_orientation_angle=groove_orientation_angle)

@@ -1,4 +1,4 @@
-// K2, sub-slices (a), (b), (c), (d), (e) and the OPD modes of (g): the
+// K2, sub-slices (a), (b), (c), (d), (e), (f) and the OPD modes of (g): the
 // vector-Jacobian product of K1 (gen_trace.cu) by per-ray recompute and a
 // per-surface reverse sweep, one ray per thread.
 //
@@ -9,14 +9,21 @@
 // modes, FREEFORM and FORBES), and the three build in parallel. The
 // polarized instances (sub-slice (e), GRAD_POL 1) are three more libraries,
 // gen_grad_pol.cu, gen_grad_pol_kahan.cu and gen_grad_pol_split.cu, so that
-// the unpolarized ones compile the code they had before (e).
+// the unpolarized ones compile the code they had before (e). The instances
+// that take the gratings and phase surfaces of (f) (WITH_DOE 1, the plain
+// and Kahan modes) are four more, gen_grad_doe.cu, gen_grad_doe_kahan.cu,
+// gen_grad_pol_doe.cu and gen_grad_pol_doe_kahan.cu, for the same reason:
+// the adjoint of (f) takes the WIDE instances from 128 registers to about
+// 205 (PERF.md).
 //
 // Replaces the TPU kernel optiland_pr_tpu/kernels/pallas_grad.py::
 // _pallas_gen_bwd_2d (body _gen_bwd_kernel -> _manual_vjp) for conic,
 // plane, even/odd aspheric, XY-polynomial, Chebyshev, biconic, toroidal,
-// Zernike and thin Fresnel surfaces that refract or reflect, with absorption
-// in the pre-material, tilt/decenter, radial and offset-radial apertures and
-// simple coatings. The TPU kernel ran jax.vjp inside the kernel; here the
+// Zernike and thin Fresnel surfaces that refract or reflect, linear gratings
+// and phase surfaces (constant, radial and linear-grating profiles) on conic
+// or plane substrates, with absorption in the pre-material, tilt/decenter,
+// radial and offset-radial apertures and simple coatings. The TPU kernel ran
+// jax.vjp inside the kernel; here the
 // adjoint of every branch is written out by hand, and it follows the
 // derivative conventions of PyTorch autograd on the plain version
 // (kernels/gen_grad.py::gen_trace_bwd_plain), which it is held against:
@@ -52,7 +59,19 @@
 //     coefficients) and the incoming vectors; the launch vectors into the
 //     launch direction and, through sqrt(w), the apodization weight. The
 //     fallback of the s basis and its guarded roots pass the cotangent to
-//     the taken branch only.
+//     the taken branch only;
+//   - (f): the grating runs back through its two normalizations, the cross
+//     product n x t, the strength c24 |f_xy| and the rebuilt normal part
+//     (none through the aligned normal's sign, none from a lost ray's
+//     guarded root), the phase update through its profile (the radial
+//     terms into dacoef; the root r = sqrt(x^2 + y^2) differentiated as
+//     autograd does, so a ray through the exact centre of a radial profile
+//     gets a non-finite cotangent, as in the JAX package), the projected
+//     gradient, the rebuilt normal part (none on an evanescent order, the
+//     double where) and the final normalization, and the OPD shift -phase
+//     / k0 (plain or compensated) into k0 = 2 pi / c7; both into the
+//     substrate's slope (the Plane class's normal is constant); the
+//     efficiency (column 29) is a constant and gets none.
 //
 // Inputs: the forward's tables and pupil samples (gen_trace_common.cuh,
 // gen_trace.cu) and the cotangents of its 8 outputs, cot [8, W, F, n].
@@ -60,9 +79,11 @@
 //   dgen    [F, 16]    columns 0-6, 8, 9 (the rest are 0), summed over W
 //   dconsts [W, S, 32] columns 0-5; 6 on a coated surface; 8-19 on a tilted
 //                      or decentered one; 24-25 on a sag of kind GK_POLY and
-//                      up; 27 (the vertex gap) in the split mode (the rest
-//                      are 0)
-//   dacoef  [S, C]     the sag coefficients' (the rest are 0), summed over W
+//                      up and on a grating or phase surface; 7 on a phase
+//                      surface; 27 (the vertex gap) in the split mode (the
+//                      rest are 0)
+//   dacoef  [S, C]     the sag coefficients' and a radial phase profile's
+//                      (the rest are 0), summed over W
 //   dPx, dPy [n]       summed over W and F (optional)
 //
 // Design.
@@ -95,7 +116,8 @@
 //      quantities ("slots") of surface k start at layout.qoff[k]: consts
 //      columns 0-5, then 6 if coated, then 8-19 if tilted, then its sag
 //      coefficients, then columns 24-25 on a sag of kind GK_POLY and up,
-//      then column 27 in the split mode; dgen's 9 follow the last
+//      then columns 24-25 (and 7 on a phase surface) on a grating or phase
+//      surface, then column 27 in the split mode; dgen's 9 follow the last
 //      surface's.
 //   2. gen_grad_reduce: one block per output element sums its partials in
 //      float64, each thread a fixed strided subset, then a fixed tree; the
@@ -133,7 +155,16 @@
 #define GBLOCK 256
 #define NWARP (GBLOCK / 32)
 #define NGEN 9        // gen columns with a cotangent: 0-6, 8, 9
-#define NDC 21        // consts columns with a cotangent: 0-6, 8-19, 24-25
+// consts columns with a cotangent: 0-6, 8-19, 24-25; 7 where the library
+// takes the diffractive surfaces (WITH_DOE, a phase surface's k0). The
+// libraries without them leave out every line of (f) by the preprocessor,
+// so that they compile the code they had before it: a branch that is only
+// dead after constant folding still moved their instruction schedule.
+#if WITH_DOE
+#define NDC 22
+#else
+#define NDC 21
+#endif
 #define RBLOCK 256    // threads of the reduction kernels
 
 // The flag words, where each surface's slots start (qoff[S]: dgen's), and
@@ -159,6 +190,13 @@ __host__ __device__ __forceinline__ int n_slots(int fl) {
            + n_extra(fl);
 }
 
+// the slots of a grating's columns 24-25, and of a phase surface's 24-25
+// and 7 (sub-slice (f)), after n_slots' (no split mode takes them)
+__host__ __device__ __forceinline__ int n_doe(int fl) {
+    const int inter = inter_of(fl);
+    return inter == INTER_GRATING ? 2 : (inter == INTER_PHASE ? 3 : 0);
+}
+
 // Slot of consts column j of surface k, or -1 if it has no cotangent.
 __device__ __forceinline__ int const_slot(const GradLayout& g, int k, int j) {
     const int fl = g.f[k];
@@ -168,6 +206,9 @@ __device__ __forceinline__ int const_slot(const GradLayout& g, int k, int j) {
     if (j >= 8 && j <= 19 && (fl & FLAG_CS)) return g.qoff[k] + 6 + coat + (j - 8);
     if ((j == 24 || j == 25) && n_extra(fl))
         return g.qoff[k] + 6 + coat + ((fl & FLAG_CS) ? 12 : 0) + ncoef_of(fl) + (j - 24);
+    if (WITH_DOE && (j == 24 || j == 25) && n_doe(fl))
+        return g.qoff[k] + n_slots(fl) + (j - 24);
+    if (WITH_DOE && j == 7 && n_doe(fl) == 3) return g.qoff[k] + n_slots(fl) + 2;
     if (j == 27 && g.split) return g.qoff[k] + n_slots(fl);
     return -1;
 }
@@ -1263,11 +1304,222 @@ __device__ __forceinline__ void polar_init_adjoint(const float* gen_row,
     if (apod && w > 0.0f) dw += gsa * 0.5f / sa;
 }
 
+// ---- the diffractive surfaces' adjoint (sub-slice (f)) ---------------------
+// Reverse of doe_forward and of surface_step's updates with it, from the
+// landed point (x, y) and the incoming direction (L, M, N) of the tape: the
+// intermediates are recomputed (doe_forward), then run back. (gLo, gMo,
+// gNo) are the cotangents of the new direction; a phase surface's take
+// a.inten and a.opd (and a.opdc in the Kahan mode) from after its update
+// to before it. Adds to (ax, ay) the landed point's cotangents, to (aL, aM,
+// aN) the incoming direction's, to (dri, dconic, dn1, dn2) and (d24, d25,
+// d7) those of consts columns 0, 1, 3, 4 and 24, 25, 7, to da a radial
+// profile's terms'.
+template <int MODE>
+__device__ __forceinline__ void doe_adjoint(
+        const float* c, const float* ac, int fl, float x, float y, float L,
+        float M, float N, float gLo, float gMo, float gNo, Adj& a, float& ax,
+        float& ay, float& aL, float& aM, float& aN, float& dri,
+        float& dconic, float& dn1, float& dn2, float& d24, float& d25,
+        float& d7, float* da) {
+    DoeTape d;
+    doe_forward(c, ac, fl, x, y, L, M, N, d);
+    const float n1 = c[3], n2 = c[4];
+    const bool refl = (fl & FLAG_REFL) != 0;
+    // (Lo, Mo, No) = (ox, oy, oz) oinv, oinv = 1 / sqrt(o.o)
+    const float goinv = gLo * d.ox + gMo * d.oy + gNo * d.oz;
+    const float goo = -goinv * d.oinv * d.oinv / (2.0f * d.osq);
+    const float gox = gLo * d.oinv + 2.0f * d.ox * goo;
+    const float goy = gMo * d.oinv + 2.0f * d.oy * goo;
+    const float goz = gNo * d.oinv + 2.0f * d.oz * goo;
+    float gnx = 0.0f, gny = 0.0f, gnz = 0.0f, gdfdx = 0.0f, gdfdy = 0.0f;
+    if (inter_of(fl) == INTER_GRATING) {
+        // o = (t2 + kn na) / den, den = +-n2, kn = +-sqrt(ok ? disc : 1)
+        const float gax = gox / d.den, gay = goy / d.den, gaz = goz / d.den;
+        const float gden = -(gox * d.ox + goy * d.oy + goz * d.oz) / d.den;
+        float gtx2 = gax, gty2 = gay, gtz2 = gaz;
+        const float gkn = gax * d.nxa + gay * d.nya + gaz * d.nza;
+        float gnxa = gax * d.kn, gnya = gay * d.kn, gnza = gaz * d.kn;
+        dn2 += refl ? -gden : gden;
+        const float gkn0 = refl ? -gkn : gkn;
+        // disc = n2^2 - t2.t2; no cotangent from a lost ray's guarded root
+        const float gdisc = d.ok ? gkn0 / (2.0f * d.kn0) : 0.0f;
+        dn2 += 2.0f * n2 * gdisc;
+        gtx2 -= 2.0f * d.tx2 * gdisc;
+        gty2 -= 2.0f * d.ty2 * gdisc;
+        gtz2 -= 2.0f * d.tz2 * gdisc;
+        // t2 = k - kdn na + g f
+        const float gkdn = -(gtx2 * d.nxa + gty2 * d.nya + gtz2 * d.nza);
+        gnxa -= gtx2 * d.kdn;
+        gnya -= gty2 * d.kdn;
+        gnza -= gtz2 * d.kdn;
+        const float gg = gtx2 * d.fx + gty2 * d.fy + gtz2 * d.fz;
+        float gfx = gtx2 * d.g, gfy = gty2 * d.g, gfz = gtz2 * d.g;
+        // kdn = k . na; k = n1 (L, M, N)
+        const float gkx = gtx2 + gkdn * d.nxa, gky = gty2 + gkdn * d.nya,
+                    gkz = gtz2 + gkdn * d.nza;
+        gnxa += gkdn * d.kx;
+        gnya += gkdn * d.ky;
+        gnza += gkdn * d.kz;
+        aL += gkx * n1;
+        aM += gky * n1;
+        aN += gkz * n1;
+        dn1 += gkx * L + gky * M + gkz * N;
+        // na = +-n: no cotangent through the sign
+        gnx += d.flip ? gnxa : -gnxa;
+        gny += d.flip ? gnya : -gnya;
+        gnz += d.flip ? gnza : -gnza;
+        // g = c24 sqrt(fx^2 + fy^2)
+        d24 += gg * d.gsq;
+        const float gfxy = gg * c[24] / (2.0f * d.gsq);
+        gfx += 2.0f * d.fx * gfxy;
+        gfy += 2.0f * d.fy * gfxy;
+        // f = -f0 finv, finv = 1 / sqrt(f0.f0)
+        const float gfinv = -(gfx * d.fx0 + gfy * d.fy0 + gfz * d.fz0);
+        const float gff = -gfinv * d.finv * d.finv / (2.0f * d.fsq);
+        const float gfx0 = -gfx * d.finv + 2.0f * d.fx0 * gff;
+        const float gfy0 = -gfy * d.finv + 2.0f * d.fy0 * gff;
+        const float gfz0 = -gfz * d.finv + 2.0f * d.fz0 * gff;
+        // f0 = n x tg
+        gnx += gfz0 * d.tgy - gfy0 * d.tgz;
+        gny += gfx0 * d.tgz - gfz0 * d.tgx;
+        gnz += gfy0 * d.tgx - gfx0 * d.tgy;
+        const float gtgx = gfy0 * d.nz - gfz0 * d.ny;
+        const float gtgy = gfz0 * d.nx - gfx0 * d.nz;
+        const float gtgz = gfx0 * d.ny - gfy0 * d.nx;
+        // tg = (1, ta, tz0) tinv, tinv = 1 / sqrt(1 + ta^2 + tz0^2)
+        const float gtinv = gtgx + gtgy * d.ta + gtgz * d.tz0;
+        const float gtt = -gtinv * d.tinv * d.tinv / (2.0f * d.tsq);
+        float gta = gtgy * d.tinv + 2.0f * d.ta * gtt;
+        const float gtz0 = gtgz * d.tinv + 2.0f * d.tz0 * gtt;
+        // tz0 = dfdx + ta dfdy
+        gdfdx = gtz0;
+        gdfdy = gtz0 * d.ta;
+        gta += gtz0 * d.dfdy;
+        d25 += gta;
+    } else {
+        // intensity: (inten mask) eff; the mask and the efficiency are
+        // constants
+        a.inten = a.inten * c[EFF_COL] * d.mask;
+        // the OPD shift, plain or compensated (surface_adjoint's form)
+        float gshift = a.opd;
+        if (MODE != OPD_PLAIN) {
+            const float gtk = a.opd + a.opdc;
+            gshift = gtk - a.opdc;
+            a.opd = gshift;
+            a.opdc = -gshift;
+        }
+        // shift = -phase / k0
+        const float gphase = -gshift / d.k0;
+        float gk0 = gshift * d.phase / (d.k0 * d.k0);
+        // o = kp + alpha n; alpha = +-sqrt(R^2), 0 on an evanescent order
+        float gkpx = gox, gkpy = goy, gkpz = goz;
+        const float galpha = gox * d.nx + goy * d.ny + goz * d.nz;
+        gnx += gox * d.alpha;
+        gny += goy * d.alpha;
+        gnz += goz * d.alpha;
+        const float alpha0 = refl ? -d.alpha : d.alpha;
+        const float grsq = d.evan ? 0.0f
+                                  : (refl ? -galpha : galpha) / (2.0f * alpha0);
+        // R^2 = nk^2 - kp.kp, nk = n2 k0
+        const float gnk = 2.0f * d.nk * grsq;
+        gkpx -= 2.0f * d.kpx * grsq;
+        gkpy -= 2.0f * d.kpy * grsq;
+        gkpz -= 2.0f * d.kpz * grsq;
+        dn2 += gnk * d.k0;
+        gk0 += gnk * n2;
+        // kp = ki - pdn n + G; pdn = ki . n; ki = nk1 (L, M, N), nk1 = n1 k0
+        const float gpdn = -(gkpx * d.nx + gkpy * d.ny + gkpz * d.nz);
+        gnx += gpdn * d.kix - gkpx * d.pdn;
+        gny += gpdn * d.kiy - gkpy * d.pdn;
+        gnz += gpdn * d.kiz - gkpz * d.pdn;
+        const float gkix = gkpx + gpdn * d.nx, gkiy = gkpy + gpdn * d.ny,
+                    gkiz = gkpz + gpdn * d.nz;
+        aL += gkix * d.nk1;
+        aM += gkiy * d.nk1;
+        aN += gkiz * d.nk1;
+        const float gnk1 = gkix * L + gkiy * M + gkiz * N;
+        dn1 += gnk1 * d.k0;
+        gk0 += gnk1 * n1;
+        // k0 = 2 pi / c7
+        d7 += -gk0 * d.k0 / c[7];
+        // G = pg - gdn n (Gz = -gdn nz); gdn = pgx nx + pgy ny
+        const float ggdn = -(gkpx * d.nx + gkpy * d.ny + gkpz * d.nz);
+        gnx += ggdn * d.pgx - gkpx * d.gdn;
+        gny += ggdn * d.pgy - gkpy * d.gdn;
+        gnz -= gkpz * d.gdn;
+        const float gpgx = gkpx + ggdn * d.nx, gpgy = gkpy + ggdn * d.ny;
+        const int pk = phase_of(fl);
+        if (pk == PH_CONSTANT) {
+            d24 += gphase;
+        } else if (pk == PH_LINEAR) {
+            d24 += gphase * x + gpgx;
+            d25 += gphase * y + gpgy;
+            ax += gphase * c[24];
+            ay += gphase * c[25];
+        } else {
+            // pg = ratio (x, y), ratio = d_dr / (rp == 0 ? 1 : rp)
+            const float gratio = gpgx * x + gpgy * y;
+            ax += gpgx * d.ratio;
+            ay += gpgy * d.ratio;
+            const float safe = d.rp == 0.0f ? 1.0f : d.rp;
+            const float gd_dr = gratio / safe;
+            float grp = d.rp == 0.0f ? 0.0f : -gratio * d.ratio / safe;
+            // phase = sum_i a_i r2p^(i+1), d_dr = sum_i a_i 2 (i + 1) rp
+            // r2p^i
+            float gr2p = 0.0f, p = 1.0f, pm = 0.0f;    // r2p^i, r2p^(i-1)
+            const int nu = nu_of(fl);
+            for (int i = 0; i < nu; ++i) {
+                const float ci = ac[i], k = 2.0f * (float)(i + 1);
+                da[i] += gphase * p * d.r2p + gd_dr * k * p * d.rp;
+                gr2p += ci * (gphase * (float)(i + 1) * p
+                              + gd_dr * k * (float)i * d.rp * pm);
+                grp += gd_dr * ci * k * p;
+                pm = p;
+                p *= d.r2p;
+            }
+            // rp = sqrt(r2p): grad / (2 rp), as autograd forms it
+            gr2p += grp / (2.0f * d.rp);
+            ax += 2.0f * x * gr2p;
+            ay += 2.0f * y * gr2p;
+        }
+        if (fl & FLAG_PLANE_CLS) gnx = gny = gnz = 0.0f;
+    }
+    // the substrate's normal (nx, ny, nz) = (dfdx, dfdy, -1) inv_n, inv_n =
+    // 1 / sqrt(dfdx^2 + dfdy^2 + 1), dfdx = (x ri) inv_root, inv_root = 1 /
+    // sqrt(arg > eps ? arg : 1), arg = 1 - (((1 + conic) ri) ri) r2; a
+    // plane's is constant
+    if (fl & FLAG_PLANE) return;
+    gdfdx += gnx * d.inv_n;
+    gdfdy += gny * d.inv_n;
+    const float ginv_n = gnx * d.dfdx + gny * d.dfdy - gnz;
+    const float gsum = -ginv_n * d.inv_n * d.inv_n / (2.0f * d.sn);
+    gdfdx += 2.0f * d.dfdx * gsum;
+    gdfdy += 2.0f * d.dfdy * gsum;
+    const float ri = c[0], conic = c[1];
+    const float gxr = gdfdx * d.inv_root, gyr = gdfdy * d.inv_root;
+    const float ginv_root = gdfdx * x * ri + gdfdy * y * ri;
+    ax += gxr * ri;
+    ay += gyr * ri;
+    dri += gxr * x + gyr * y;
+    const float gsr = -ginv_root * d.inv_root * d.inv_root;
+    const float garg = d.arg > EPS_GUARD ? gsr / (2.0f * d.sr) : 0.0f;
+    const float B = (1.0f + conic) * ri;
+    const float A = B * ri;
+    const float gA = -garg * d.r2;
+    const float gr2 = -garg * A;
+    const float gB = gA * ri;
+    dri += gA * B + gB * (1.0f + conic);
+    dconic += gB * ri;
+    ax += 2.0f * x * gr2;
+    ay += 2.0f * y * gr2;
+}
+
 // Adjoint of surface_step. ``in`` is the surface's input state, ``tp`` its
 // recomputed intermediates. ``a`` holds the cotangent of the output state on
 // entry and of the input state on return; dc receives the cotangents of
-// consts columns 0-6, 8-19 (dc[7 + j - 8] for column j in 8-19) and 24-25
-// (dc[19], dc[20]), da those of the surface's sag coefficients, dgap that of
+// consts columns 0-6, 8-19 (dc[7 + j - 8] for column j in 8-19), 24-25
+// (dc[19], dc[20]) and 7 (dc[21], a phase surface's), da those of the
+// surface's sag coefficients (or a radial phase profile's), dgap that of
 // column 27 (the split mode). POL: pin holds the surface's input E-vectors,
 // gE their updated ones' cotangents on entry and their own on return.
 template <int VAR, int MODE, bool POL>
@@ -1289,6 +1541,9 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     const bool fresnel = FF && (gk == GK_FZONE || gk == GK_FDESIGNED);
     const bool newton = gk != GK_CONIC && !fresnel;
     const bool conic_like = gk == GK_CONIC || (FF && gk == GK_FZONE);
+#if WITH_DOE
+    const bool doe = WIDE && inter_of(fl) != INTER_NONE;
+#endif
     // the incoming direction and the landing point, in the surface's frame
     const float L = tp.Ll, M = tp.Ml, N = tp.Nl;
     const float x2 = tp.x2, y2 = tp.y2;
@@ -1345,7 +1600,12 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
     // normal and cos_i (|N| on a plane, |dot| else) ----------------------------
     float gk0[3] = {0.0f, 0.0f, 0.0f}, gnrm[3] = {0.0f, 0.0f, 0.0f},
           gcos = 0.0f;
+    // (a grating or phase step leaves the E-vectors as they are)
+#if WITH_DOE
+    if constexpr (POL) if (!doe) {
+#else
     if constexpr (POL) {
+#endif
         const bool plane = conic_like && (fl & FLAG_PLANE);
         const float cos_i = plane ? fabsf(N) : fabsf(tp.dot);
         PolSurf b;
@@ -1360,8 +1620,15 @@ __device__ __forceinline__ void surface_adjoint(const float* c, const float* ac,
         aNo += gk1[2];
     }
 
-    // ---- refract or reflect ------------------------------------------------
+    // ---- refract or reflect, or the grating or phase step ------------------
     float aL = 0.0f, aM = 0.0f, aN = 0.0f;     // cotangents of L, M, N in
+#if WITH_DOE
+    if (doe) {
+        doe_adjoint<MODE>(c, ac, fl, x2, y2, L, M, N, aLo, aMo, aNo, a, ax2,
+                          ay2, aL, aM, aN, dri, dconic, dn1, dn2, dc[19],
+                          dc[20], dc[21], da);
+    } else
+#endif
     if (conic_like && (fl & FLAG_PLANE)) {
         if (fl & FLAG_REFL) {                  // N_out = -N
             aL = aLo;
@@ -1865,6 +2132,15 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
                     if (lane == 0) sw[warp * nq + q + j] = v;
                 }
             }
+#if WITH_DOE
+            // a grating's columns 24-25, a phase surface's and its 7
+            const int nd = n_doe(fl);
+            for (int j = 0; j < nd; ++j) {
+                const float v = warp_sum(active ? dc[19 + j] : 0.0f);
+                if (lane == 0)
+                    sw[warp * nq + layout.qoff[k] + n_slots(fl) + j] = v;
+            }
+#endif
         }
     }
 
@@ -2016,7 +2292,7 @@ static bool make_layout(const int32_t* flags, int S, int C, GradLayout& g) {
         g.f[k] = k < S ? flags[k] : 0;
         if (ncoef_of(g.f[k]) > (C < MAX_TERMS ? C : MAX_TERMS)) return false;
         g.qoff[k] = q;
-        if (k < S) q += n_slots(g.f[k]) + g.split;
+        if (k < S) q += n_slots(g.f[k]) + n_doe(g.f[k]) + g.split;
     }
     g.qoff[MAX_SURF] = q;
     return kinds_ok(g.f, S) && (!g.split || split_ok(g.f, S));

@@ -1,0 +1,10 @@
+// K2's polarized instances (sub-slice (e)) that take the gratings and phase
+// surfaces (sub-slice (f)), in the plain OPD mode: gen_grad.cu built with
+// WITH_DOE 1, GRAD_POL 1 and GRAD_MODE = OPD_PLAIN, into a library of its
+// own, so that it builds in parallel and the other libraries keep the code
+// they had before (f).
+#define WITH_DOE 1
+#include "gen_trace_common.cuh"
+#define GRAD_MODE OPD_PLAIN
+#define GRAD_POL 1
+#include "gen_grad.cu"

@@ -61,6 +61,7 @@
 // uniform over the launch, which halves the instances to build; measured on
 // an H100, a compile-time n_ev = 1 is 2-4% faster on the linear launches
 // (probes/nev_template.py, PERF.md).
+#define WITH_DOE 1
 #include "gen_trace_common.cuh"
 
 #ifndef TRACE_POL

@@ -6,7 +6,9 @@
 // XY polynomial, the Chebyshev grid, the biconic, the toroid, the Zernike
 // sag, the Forbes Qbfs and Q2D sags) and the thin Fresnel surfaces (zoned,
 // designed), the launch modes of (d) (the object-space telecentric aim and
-// the closed-form apodizations), and the OPD modes of (g): the
+// the closed-form apodizations), the diffractive surfaces of (f) (the
+// linear grating and the constant, radial and linear-grating phase
+// profiles on conic or plane substrates), and the OPD modes of (g): the
 // Kahan-compensated sum and the split-OPD accumulation.
 //
 // Both kernels run this one forward, so K2's recomputed forward is bit for
@@ -27,7 +29,9 @@
 // _q2d_sag_grad (594), _freeform_sag_grad (841-935), the Fresnel branches
 // (1379-1383, 1672-1688, 1707-1720), the (d) branches of _gen_prologue
 // (telecentric 1980, 2011; apodization 1998, 2026-2051) and _gen_epilogue
-// (2123-2140).
+// (2123-2140), the diffractive branches of _surface_step (the shared conic
+// slope and normal 1527-1540, the grating 1542-1586, the phase update
+// 1587-1662).
 //
 // Layout (shared with the plain version, kernels/gen_trace.py):
 //   gen    [F, 16]     per-field launch constants (origin/aim coefficients,
@@ -43,14 +47,20 @@
 //                      norm_y; biconic 1/radius_x, conic_x; toroid the
 //                      rotation radius (1 at infinity); Zernike
 //                      norm_radius; Forbes norm_radius; designed Fresnel
-//                      focal_length, n_design
+//                      focal_length, n_design; a grating m lambda / period
+//                      (per wavelength) and tan of its groove angle; a
+//                      phase surface's constant phase, or its linear
+//                      grating's (Kx, Ky)
+//                      7 the wavelength (a phase surface's k0 = 2 pi / c7)
 //                      27 the signed vertex gap (split mode; surface 1's
 //                      from the launch plane)
+//                      29 a phase surface's diffraction efficiency
 //   acoef  [S, C]      sag coefficients, row k for surface k: asphere and
 //                      toroid terms, the XY-polynomial and Chebyshev grids
 //                      row-major (C[i][j] at i nv + j), Zernike terms, the
 //                      Forbes sags' basis-changed terms (a Q2D surface's
-//                      followed by its term structure, q2d_sag_grad)
+//                      followed by its term structure, q2d_sag_grad), a
+//                      radial phase profile's terms
 //   ztab   [3, MAX_TERMS, ZT_W]  each Zernike basis's term structure, built
 //                      on the host (kernels/gen_trace.py::zernike_table):
 //                      per term n, m, the normalization, the number of
@@ -61,7 +71,11 @@
 //                      sag (GK_*); bits 10-15 nu, the terms of a sag or the
 //                      x size of a grid; bits 16-21 nv, a grid's y size;
 //                      bits 22-23 the Zernike basis (0 standard, 1 fringe,
-//                      2 Noll); bit 24 a Fresnel coating
+//                      2 Noll); bit 24 a Fresnel coating; bits 25-26 the
+//                      interaction (INTER_*: 0 refract or reflect, 1
+//                      grating, 2 phase); bits 27-28 a phase surface's
+//                      profile (PH_*); bit 29 a phase surface on the Plane
+//                      class (its normal +z)
 //
 // Rounding: every operation is an explicit IEEE round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never contracts
@@ -78,7 +92,16 @@
 // words need. The OPD mode (OPD_PLAIN, OPD_KAHAN, OPD_SPLIT) is the
 // caller's choice; OPD_PLAIN compiles the code that ran before (g). The
 // split mode takes no sag but the conic, so VAR_FREEFORM is built in the
-// plain and Kahan modes only.
+// plain and Kahan modes only. The diffractive surfaces of (f) are a
+// runtime branch on the flag word's interaction bits in the WIDE,
+// FREEFORM and FORBES variants (the host launches at least WIDE for them),
+// so the narrow variant compiles the code it had before (f); the split
+// mode takes none. A source compiles the branch when it defines WITH_DOE
+// 1 before including this header: K1 and K3 do; K2's adjoint of it would
+// take the WIDE and wider instances' registers (WIDE K2 from 128 to ~205),
+// so K2's instances with it are libraries of their own
+// (gen_grad_doe*.cu, gen_grad_pol_doe*.cu), and its other libraries compile
+// the code they had before (f).
 //
 // The Newton sags share the asphere's loop: the conic root (or the plane)
 // as the warm start, NEWTON_ITERS steps, then the live step K2
@@ -103,6 +126,11 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+// 1: compile the diffractive surfaces of (f) (see above)
+#ifndef WITH_DOE
+#define WITH_DOE 0
+#endif
 #include <math.h>
 #include <stdint.h>
 
@@ -119,6 +147,16 @@ enum { FLAG_PLANE = 1, FLAG_REFL = 2, FLAG_ABSORB = 4, FLAG_CS = 8,
 // a Fresnel coating (bit 24): read by a polarized launch only, so it needs
 // no wider variant
 #define FLAG_FRESNEL (1 << 24)
+// sub-slice (f): the interaction (bits 25-26), a phase surface's profile
+// (bits 27-28) and its Plane class (bit 29); the efficiency's column
+#define INTER_SHIFT 25
+#define INTER_MASK 3
+enum { INTER_NONE = 0, INTER_GRATING = 1, INTER_PHASE = 2 };
+#define PHASE_SHIFT 27
+#define PHASE_MASK 3
+enum { PH_CONSTANT = 0, PH_RADIAL = 1, PH_LINEAR = 2 };
+#define FLAG_PLANE_CLS (1 << 29)
+#define EFF_COL 29
 // the sag kinds
 enum { GK_CONIC = 0, GK_EVEN = 1, GK_ODD = 2, GK_POLY = 3, GK_CHEB = 4,
        GK_BICONIC = 5, GK_TORUS = 6, GK_TORUS_INF = 7, GK_ZERNIKE = 8,
@@ -134,12 +172,15 @@ enum { VAR_NARROW = 0, VAR_WIDE = 1, VAR_FREEFORM = 2, VAR_FORBES = 3 };
 #define BASIS_SHIFT 22
 #define BASIS_MASK 3
 // the bits that need the WIDE variant
-#define WIDE_MASK (FLAG_CS | FLAG_AP | FLAG_COAT | (GKIND_MASK << GKIND_SHIFT))
+#define WIDE_MASK (FLAG_CS | FLAG_AP | FLAG_COAT | (GKIND_MASK << GKIND_SHIFT) \
+                   | (INTER_MASK << INTER_SHIFT))
 
 __host__ __device__ __forceinline__ int gkind_of(int fl) { return (fl >> GKIND_SHIFT) & GKIND_MASK; }
 __host__ __device__ __forceinline__ int nu_of(int fl) { return (fl >> NU_SHIFT) & NTERM_MASK; }
 __host__ __device__ __forceinline__ int nv_of(int fl) { return (fl >> NV_SHIFT) & NTERM_MASK; }
 __host__ __device__ __forceinline__ int basis_of(int fl) { return (fl >> BASIS_SHIFT) & BASIS_MASK; }
+__host__ __device__ __forceinline__ int inter_of(int fl) { return (fl >> INTER_SHIFT) & INTER_MASK; }
+__host__ __device__ __forceinline__ int phase_of(int fl) { return (fl >> PHASE_SHIFT) & PHASE_MASK; }
 // the coefficients a sag reads from its acoef row
 __host__ __device__ __forceinline__ int ncoef_of(int fl) {
     const int gk = gkind_of(fl);
@@ -965,6 +1006,186 @@ __device__ __forceinline__ float polar_intensity(const PolState& ps,
     return mul(total, scale);
 }
 
+// ---- the diffractive surfaces of (f) ---------------------------------------
+// A grating or phase surface meets the ray as its conic or plane substrate
+// does; at the landed point (x, y) it computes the substrate's slope and
+// unit normal (the conic's, as the refracting surface's; (0, 0, -1) on a
+// plane), then
+//   the grating: the groove tangent t = normalize(1, tan a, dfdx + tan a
+//     dfdy) (tan a in column 25), the grating vector f = -normalize(n x
+//     t), the strength g = c24 |f_xy| (c24 = m lambda / period); the normal
+//     aligned along the ray, the tangential part of n1 k plus g f, and the
+//     normal part rebuilt from |k_out| = n2 (negated, and the whole divided
+//     by -n2, on a reflective grating); a ray with no propagating order
+//     (disc < 0) is lost;
+//   the phase update: the profile's phase and gradient (constant c24;
+//     radial sum_i a_i r^(2(i+1)) from the acoef row; linear c24 x + c25
+//     y), the Plane class's +z normal, the surface-projected gradient G =
+//     pg - (pg.n) n, k0 = 2 pi / c7, the tangential part of n1 k0 k plus G
+//     and the normal part rebuilt from n2 k0 (negated on a mirror); an
+//     evanescent order (R^2 < 0) gets intensity 0 and stays valid; the OPD
+//     shifts by -phase / k0 and the intensity scales by the efficiency
+//     (column 29).
+// Every operation in the plain version's order (kernels/gen_trace.py::
+// _doe_plain). The intermediates are kept for K2, which recomputes them
+// from the tape's landed point and incoming direction.
+struct DoeTape {
+    // the substrate's slope and unit normal
+    float r2, arg, sr, inv_root, dfdx, dfdy, sn, inv_n, nx, ny, nz;
+    // the grating: the groove tangent, the grating vector before and after
+    // its normalization, its xy projection's root and the strength; the
+    // aligned normal, n1 k, the tangential part, the normal part's root
+    float ta, tz0, tsq, tinv, tgx, tgy, tgz, fx0, fy0, fz0, fsq, finv, fx,
+          fy, fz, gsq, g;
+    bool flip;
+    float nxa, nya, nza, kx, ky, kz, kdn, tx2, ty2, tz2, disc, kn0, kn, den;
+    bool ok;
+    // the phase: the radial profile's r^2, r, d phi / dr and its ratio to
+    // r, the profile's phase and gradient, (pg.n), G, k0, n1 k0, k_in,
+    // (k_in.n), k_parallel, n2 k0, R^2, the normal part alpha
+    float r2p, rp, d_dr, ratio, phase, pgx, pgy, gdn, Gx, Gy, Gz, k0, nk1,
+          kix, kiy, kiz, pdn, kpx, kpy, kpz, nk, rsq, alpha;
+    bool evan;
+    // the new direction before its normalization, its norm's root and
+    // inverse; the outputs: the direction, the intensity factor, the OPD
+    // shift
+    float ox, oy, oz, osq, oinv, Lo, Mo, No, mask, shift;
+};
+
+__device__ __forceinline__ void doe_forward(const float* c, const float* ac,
+                                            int fl, float x, float y,
+                                            float L, float M, float N,
+                                            DoeTape& d) {
+    const float n1 = c[3], n2 = c[4];
+    const bool refl = (fl & FLAG_REFL) != 0;
+    if (fl & FLAG_PLANE) {
+        d.dfdx = 0.0f;
+        d.dfdy = 0.0f;
+        d.nx = 0.0f;
+        d.ny = 0.0f;
+        d.nz = -1.0f;
+    } else {
+        d.r2 = add(mul(x, x), mul(y, y));
+        d.arg = sub(1.0f, mul(mul(mul(add(1.0f, c[1]), c[0]), c[0]), d.r2));
+        d.sr = sqt(d.arg > EPS_GUARD ? d.arg : 1.0f);
+        d.inv_root = dvd(1.0f, d.sr);
+        d.dfdx = mul(mul(x, c[0]), d.inv_root);
+        d.dfdy = mul(mul(y, c[0]), d.inv_root);
+        d.sn = sqt(add(add(mul(d.dfdx, d.dfdx), mul(d.dfdy, d.dfdy)), 1.0f));
+        d.inv_n = dvd(1.0f, d.sn);
+        d.nx = mul(d.dfdx, d.inv_n);
+        d.ny = mul(d.dfdy, d.inv_n);
+        d.nz = -d.inv_n;
+    }
+    d.mask = 1.0f;
+    d.shift = 0.0f;
+    d.ok = true;
+    if (inter_of(fl) == INTER_GRATING) {
+        d.ta = c[25];
+        d.tz0 = add(d.dfdx, mul(d.ta, d.dfdy));
+        d.tsq = sqt(add(add(1.0f, mul(d.ta, d.ta)), mul(d.tz0, d.tz0)));
+        d.tinv = dvd(1.0f, d.tsq);
+        d.tgx = d.tinv;
+        d.tgy = mul(d.ta, d.tinv);
+        d.tgz = mul(d.tz0, d.tinv);
+        d.fx0 = sub(mul(d.ny, d.tgz), mul(d.nz, d.tgy));
+        d.fy0 = sub(mul(d.nz, d.tgx), mul(d.nx, d.tgz));
+        d.fz0 = sub(mul(d.nx, d.tgy), mul(d.ny, d.tgx));
+        d.fsq = sqt(add(add(mul(d.fx0, d.fx0), mul(d.fy0, d.fy0)),
+                        mul(d.fz0, d.fz0)));
+        d.finv = dvd(1.0f, d.fsq);
+        d.fx = mul(-d.fx0, d.finv);
+        d.fy = mul(-d.fy0, d.finv);
+        d.fz = mul(-d.fz0, d.finv);
+        d.gsq = sqt(add(mul(d.fx, d.fx), mul(d.fy, d.fy)));
+        d.g = mul(c[24], d.gsq);
+        // the normal along the ray, sign(0) := +1
+        d.flip = add(add(mul(L, d.nx), mul(M, d.ny)), mul(N, d.nz)) >= 0.0f;
+        d.nxa = d.flip ? d.nx : -d.nx;
+        d.nya = d.flip ? d.ny : -d.ny;
+        d.nza = d.flip ? d.nz : -d.nz;
+        d.kx = mul(n1, L);
+        d.ky = mul(n1, M);
+        d.kz = mul(n1, N);
+        d.kdn = add(add(mul(d.kx, d.nxa), mul(d.ky, d.nya)), mul(d.kz, d.nza));
+        d.tx2 = add(sub(d.kx, mul(d.kdn, d.nxa)), mul(d.g, d.fx));
+        d.ty2 = add(sub(d.ky, mul(d.kdn, d.nya)), mul(d.g, d.fy));
+        d.tz2 = add(sub(d.kz, mul(d.kdn, d.nza)), mul(d.g, d.fz));
+        d.disc = sub(mul(n2, n2), add(add(mul(d.tx2, d.tx2), mul(d.ty2, d.ty2)),
+                                      mul(d.tz2, d.tz2)));
+        d.ok = d.disc >= 0.0f;
+        d.kn0 = sqt(d.ok ? d.disc : 1.0f);
+        d.kn = refl ? -d.kn0 : d.kn0;
+        d.den = refl ? -n2 : n2;
+        d.ox = dvd(add(d.tx2, mul(d.kn, d.nxa)), d.den);
+        d.oy = dvd(add(d.ty2, mul(d.kn, d.nya)), d.den);
+        d.oz = dvd(add(d.tz2, mul(d.kn, d.nza)), d.den);
+    } else {
+        if (fl & FLAG_PLANE_CLS) {             // the Plane class: +z
+            d.nx = 0.0f;
+            d.ny = 0.0f;
+            d.nz = 1.0f;
+        }
+        const int pk = phase_of(fl);
+        if (pk == PH_CONSTANT) {
+            d.phase = c[24];
+            d.pgx = 0.0f;
+            d.pgy = 0.0f;
+        } else if (pk == PH_RADIAL) {
+            d.r2p = add(mul(x, x), mul(y, y));
+            d.rp = sqt(d.r2p);
+            float phase = 0.0f, d_dr = 0.0f, term = d.r2p, rpow = d.rp;
+            const int nu = nu_of(fl);
+            for (int i = 0; i < nu; ++i) {
+                const float ci = ac[i];
+                phase = add(phase, mul(ci, term));
+                d_dr = add(d_dr, mul(mul(ci, 2.0f * (float)(i + 1)), rpow));
+                term = mul(term, d.r2p);
+                rpow = mul(rpow, d.r2p);
+            }
+            d.phase = phase;
+            d.d_dr = d_dr;
+            d.ratio = dvd(d_dr, d.rp == 0.0f ? 1.0f : d.rp);
+            d.pgx = mul(d.ratio, x);
+            d.pgy = mul(d.ratio, y);
+        } else {
+            d.phase = add(mul(c[24], x), mul(c[25], y));
+            d.pgx = c[24];
+            d.pgy = c[25];
+        }
+        d.gdn = add(mul(d.pgx, d.nx), mul(d.pgy, d.ny));
+        d.Gx = sub(d.pgx, mul(d.gdn, d.nx));
+        d.Gy = sub(d.pgy, mul(d.gdn, d.ny));
+        d.Gz = mul(-d.gdn, d.nz);
+        d.k0 = dvd(TWO_PI_F, c[7]);
+        d.nk1 = mul(n1, d.k0);
+        d.kix = mul(d.nk1, L);
+        d.kiy = mul(d.nk1, M);
+        d.kiz = mul(d.nk1, N);
+        d.pdn = add(add(mul(d.kix, d.nx), mul(d.kiy, d.ny)), mul(d.kiz, d.nz));
+        d.kpx = add(sub(d.kix, mul(d.pdn, d.nx)), d.Gx);
+        d.kpy = add(sub(d.kiy, mul(d.pdn, d.ny)), d.Gy);
+        d.kpz = add(sub(d.kiz, mul(d.pdn, d.nz)), d.Gz);
+        d.nk = mul(n2, d.k0);
+        d.rsq = sub(mul(d.nk, d.nk), add(add(mul(d.kpx, d.kpx), mul(d.kpy, d.kpy)),
+                                         mul(d.kpz, d.kpz)));
+        d.evan = d.rsq < 0.0f;
+        d.mask = d.evan ? 0.0f : 1.0f;
+        // the double where: no root of a negative R^2
+        const float alpha = d.evan ? 0.0f : sqt(fmaxf(d.rsq, 0.0f));
+        d.alpha = refl ? -alpha : alpha;
+        d.ox = add(d.kpx, mul(d.alpha, d.nx));
+        d.oy = add(d.kpy, mul(d.alpha, d.ny));
+        d.oz = add(d.kpz, mul(d.alpha, d.nz));
+        d.shift = dvd(-d.phase, d.k0);
+    }
+    d.osq = sqt(add(add(mul(d.ox, d.ox), mul(d.oy, d.oy)), mul(d.oz, d.oz)));
+    d.oinv = dvd(1.0f, d.osq);
+    d.Lo = mul(d.ox, d.oinv);
+    d.Mo = mul(d.oy, d.oinv);
+    d.No = mul(d.oz, d.oinv);
+}
+
 // ---- prologue: launch by generalized aiming (_gen_prologue) -------------
 // gen column 10 selects the object-space telecentric aim x1 = Px*B + x0
 // (dxr = Px g8, dzr = g5, the constant axial distance); column 11 the
@@ -993,9 +1214,10 @@ __device__ __forceinline__ void gen_prologue(const float* g, float Px, float Py,
 
 // ---- one surface (_surface_step) -------------------------------------------
 // c: the surface's constant row; ac: its sag coefficients (read only by WIDE
-// and FREEFORM); ztab: the Zernike table (read only by FREEFORM); sigma:
-// the propagation sign (read only by OPD_SPLIT); ps: a polarized launch's
-// E-vectors (POL only).
+// and FREEFORM) or a radial phase profile's terms; ztab: the Zernike table
+// (read only by FREEFORM); sigma: the propagation sign (read only by
+// OPD_SPLIT); ps: a polarized launch's E-vectors (POL only; a grating or
+// phase surface leaves them as they are).
 template <int VAR, int MODE, bool POL = false>
 __device__ __forceinline__ void surface_step(const float* c, const float* ac,
                                              const float* ztab, int fl,
@@ -1013,6 +1235,11 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     const bool newton = gk != GK_CONIC && !fresnel;
     // the zoned Fresnel refracts with its parent conic's slope
     const bool conic_like = gk == GK_CONIC || (FF && gk == GK_FZONE);
+#if WITH_DOE
+    // a grating or phase surface (sub-slice (f)): WIDE and up; a source
+    // without (f) leaves out its lines (gen_grad.cu)
+    const bool doe = WIDE && inter_of(fl) != INTER_NONE;
+#endif
     float x = s.x, y = s.y, z;
     float L = s.L, M = s.M, N = s.N;
 
@@ -1137,6 +1364,24 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     tp.z2 = z;
 
     float Lo = L, Mo = M, No = N;
+#if WITH_DOE
+    if (doe) {
+        DoeTape d;
+        doe_forward(c, ac, fl, x, y, L, M, N, d);
+        Lo = d.Lo;
+        Mo = d.Mo;
+        No = d.No;
+        s.valid = s.valid && d.ok;
+        if (inter_of(fl) == INTER_PHASE) {
+            s.inten = mul(s.inten, d.mask);
+            if (MODE == OPD_KAHAN)
+                kahan_add(s, d.shift);
+            else
+                s.opd = add(s.opd, d.shift);
+            s.inten = mul(s.inten, c[EFF_COL]);
+        }
+    } else
+#endif
     if (conic_like && (fl & FLAG_PLANE)) {
         if (fl & FLAG_REFL) {
             No = -N;
@@ -1191,7 +1436,11 @@ __device__ __forceinline__ void surface_step(const float* c, const float* ac,
     }
     // the polarization chain, on the local directions before and after the
     // interaction (pallas_trace.py:1517-1523, 1663-1731)
+#if WITH_DOE
+    if constexpr (POL) if (!doe) {
+#else
     if constexpr (POL) {
+#endif
         const bool plane = conic_like && (fl & FLAG_PLANE);
         PolSurf b;
         polar_surface(b, fl, n1, n2, plane, plane ? fabsf(N) : fabsf(tp.dot),
@@ -1242,17 +1491,32 @@ __device__ __forceinline__ void gen_epilogue(const float* g, int final_prop,
 }
 
 // True when the split mode can take the flag words: no tilt, no sag but the
-// conic.
+// conic, no grating or phase surface.
 static inline bool split_ok(const int32_t* flags, int S) {
     for (int k = 0; k < S; ++k)
-        if (flags[k] & (FLAG_CS | (GKIND_MASK << GKIND_SHIFT))) return false;
+        if (flags[k] & (FLAG_CS | (GKIND_MASK << GKIND_SHIFT)
+                        | (INTER_MASK << INTER_SHIFT)))
+            return false;
     return true;
 }
 
-// True when every flag word names a sag kind the kernels have.
+// True when every flag word names a sag kind the kernels have, and an
+// interaction they have on a conic or plane (a phase profile of PH_*; terms
+// on a radial one only), and a grating or phase surface only where this
+// source compiles them (WITH_DOE).
 static inline bool kinds_ok(const int32_t* flags, int S) {
-    for (int k = 0; k < S; ++k)
-        if (gkind_of(flags[k]) > GK_LAST) return false;
+    for (int k = 0; k < S; ++k) {
+        const int fl = flags[k], inter = inter_of(fl);
+        if (gkind_of(fl) > GK_LAST || inter > INTER_PHASE ||
+            (!WITH_DOE && inter != INTER_NONE))
+            return false;
+        if (inter != INTER_NONE &&
+            (gkind_of(fl) != GK_CONIC || (fl & (FLAG_COAT | FLAG_FRESNEL)) ||
+             (inter == INTER_PHASE ? phase_of(fl) > PH_LINEAR ||
+                                         (nu_of(fl) && phase_of(fl) != PH_RADIAL)
+                                   : nu_of(fl) != 0)))
+            return false;
+    }
     return true;
 }
 

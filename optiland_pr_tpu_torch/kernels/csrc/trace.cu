@@ -25,6 +25,7 @@
 // k1_ops without the prologue and the image propagation): at 4M rays 0.080
 // ms by bytes, 0.031 ms by operations; instruction issue bounds it as it does
 // K1.
+#define WITH_DOE 1
 #include "gen_trace_common.cuh"
 
 #define BLOCK 256

@@ -1,5 +1,5 @@
 """K2 in the port: the backward of K1 for the sub-slices K1 covers, (a), (b),
-(c), (d), (e) and the OPD modes of (g) (counterpart of
+(c), (d), (e), (f) and the OPD modes of (g) (counterpart of
 ``optiland_pr_tpu/kernels/pallas_grad.py``: ``_pallas_gen_bwd_2d`` and the
 ``diff_gen_trace`` custom_vjp).
 
@@ -9,7 +9,9 @@ The module holds
   the given cotangents;
 - ``gen_trace_bwd_cuda``: the wrapper of the hand-written CUDA kernel
   ``csrc/gen_grad.cu``, built with nvcc at first use (one library per OPD
-  mode, and per mode one of the polarized instances) and bound with ctypes;
+  mode, and per mode one of the polarized instances; the systems with a
+  grating or phase surface take libraries of their own, ``grad_lib``) and
+  bound with ctypes;
 - ``GenTrace``: the ``torch.autograd.Function`` over K1. Its forward is K1
   (the CUDA kernel on CUDA tensors, the plain version on CPU tensors), its
   backward K2 on the same device. A CUDA tensor never falls back to a plain
@@ -26,9 +28,9 @@ import ctypes
 
 import torch
 
-from .gen_trace import (CONST_W, GEN_W, GRAD_LIBS, GRAD_POL_LIBS, OPD_MODES,
-                        VARIANTS, build_kernel, check_tables, gen_trace_cuda,
-                        gen_trace_plain, polar_words, zernike_table)
+from .gen_trace import (CONST_W, GEN_W, OPD_MODES, VARIANTS, build_kernel,
+                        check_tables, gen_trace_cuda, gen_trace_plain,
+                        grad_lib, has_doe, polar_words, zernike_table)
 
 __all__ = ["gen_trace_bwd_plain", "gen_trace_bwd_cuda", "GenTrace"]
 
@@ -60,8 +62,8 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
     if tuple(cot.shape) != (8, W, F, n) or n < 1:
         raise ValueError("cot must be [8, W, F, n] with n >= 1")
     dev = Px.device
-    lib = build_kernel((GRAD_LIBS if polar is None else GRAD_POL_LIBS)[
-        opd_mode])
+    doe = has_doe(flags)
+    lib = build_kernel(grad_lib(opd_mode, polar, doe))
     words = (ctypes.c_int32 * S)(*words)
 
     def empty(*shape):
@@ -95,6 +97,7 @@ def gen_trace_bwd_cuda(gen, consts, acoef, Px, Py, cot, flags,
     gen_trace_bwd_cuda.launches_by_mode[opd_mode] += 1
     gen_trace_bwd_cuda.launches_by_variant[VARIANTS[variant.value]] += 1
     gen_trace_bwd_cuda.launches_polarized += polar is not None
+    gen_trace_bwd_cuda.launches_doe += doe
     return dgen, dconsts, dacoef, dpx, dpy
 
 
@@ -102,6 +105,7 @@ gen_trace_bwd_cuda.launches = 0
 gen_trace_bwd_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
 gen_trace_bwd_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 gen_trace_bwd_cuda.launches_polarized = 0
+gen_trace_bwd_cuda.launches_doe = 0
 
 
 class GenTrace(torch.autograd.Function):

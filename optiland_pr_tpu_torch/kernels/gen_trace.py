@@ -1,7 +1,7 @@
 """K1 in the port: fused ray generation + surface stack + image propagation
 (counterpart of ``optiland_pr_tpu/kernels/pallas_trace.py::_pallas_gen_trace_2d``
 and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
-(d), (e) and (g):
+(d), (e), (f) and (g):
 - (a) conic and plane surfaces that refract or reflect, with absorption in
   the pre-material;
 - (b) tilted and decentered surfaces (localize before the intersection,
@@ -29,6 +29,17 @@ and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
   scaled squared norm; the vectors are not rotated by the tilts, and the
   intensity replaces the aperture, coating and absorption factors, as the
   JAX kernel's do;
+- (f), the diffractive surfaces, on conic or plane substrates without a
+  coating: the linear grating's closed-form diffraction (the groove tangent
+  normalize(1, tan a, dfdx + tan a dfdy), the grating vector -normalize(n x
+  t), the strength m lambda / period (column 24, per wavelength) scaled by
+  the grating vector's xy projection, the normal part rebuilt from |k_out|
+  = n2, a ray with no propagating order lost), and the phase update of the
+  constant, radial and linear-grating profiles (the profile's
+  surface-projected gradient added to the tangential wavevector, the
+  normal part rebuilt from n2 k0, an evanescent order's intensity set to
+  0, the OPD shifted by -phase / k0, the intensity scaled by the
+  efficiency, column 29); neither updates a polarized launch's E-vectors;
 - (g), the OPD precision modes (``OPD_MODES``): "kahan", the compensated
   sum of the path lengths, and "split", the split-OPD accumulation of
   untilted conic/plane stacks (``supports_split_opd``): z is carried local
@@ -49,8 +60,9 @@ The module holds
   ctypes;
 - ``build_kernel``/``build_kernels``: the nvcc build of the port's CUDA
   sources (K1 here, K2, one library per OPD mode, in ``gen_grad.py``, each
-  with a polarized library beside it, K3 in ``trace_conic.py``, K4 in
-  ``huygens.py``);
+  with a polarized library beside it, and in the plain and Kahan modes the
+  libraries of the systems with a grating or phase surface, K3 in
+  ``trace_conic.py``, K4 in ``huygens.py``);
 - ``gen_trace_conic``, the counterpart of ``pallas_gen_trace_conic``: a CPU
   tensor takes the plain version, a CUDA tensor the kernel, and nothing
   falls back. Inputs that require grad go through ``gen_grad.GenTrace``,
@@ -84,7 +96,7 @@ from ..system.model import OpticModel, positions_from_params
 
 __all__ = ["supports_model", "supports_split_opd", "gen_eligible",
            "model_flags", "NEWTON_ITERS", "OPD_MODES", "GRAD_LIBS",
-           "GRAD_POL_LIBS",
+           "GRAD_POL_LIBS", "grad_lib", "has_doe",
            "ZERNIKE_BASES", "VARIANTS", "SurfaceFlags", "zernike_table",
            "n_coefs",
            "pack_surface_constants", "pack_asphere_coeffs", "gen_tables",
@@ -114,12 +126,20 @@ OPD_MODES = ("plain", "kahan", "split")
 
 # the flag word of a surface (csrc/gen_trace_common.cuh): bits 0-5 the
 # booleans, bits 6-9 the sag kind, bits 10-15 nu (the terms of a sag, the
-# x size of a coefficient grid), bits 16-21 nv (a grid's y size), bits
-# 22-23 the Zernike basis, bit 24 a Fresnel coating (read by a polarized
-# launch only)
+# x size of a coefficient grid, a radial phase profile's terms), bits 16-21
+# nv (a grid's y size), bits 22-23 the Zernike basis, bit 24 a Fresnel
+# coating (read by a polarized launch only); sub-slice (f): bits 25-26 the
+# interaction (INTERACTIONS), bits 27-28 a phase surface's profile
+# (PHASE_KINDS), bit 29 a phase surface on the Plane class (+z normal)
 FLAG_PLANE, FLAG_REFL, FLAG_ABSORB = 1, 2, 4
 FLAG_CS, FLAG_AP, FLAG_COAT = 8, 16, 32
 FLAG_FRESNEL = 1 << 24
+INTER_SHIFT, PHASE_SHIFT, FLAG_PLANE_CLS = 25, 27, 1 << 29
+INTERACTIONS = ("refract_reflect", "grating", "phase")
+PHASE_KINDS = ("constant", "radial", "linear_grating")
+# a phase surface's diffraction efficiency (a static float in the JAX
+# kernel): a constant column no gradient reaches
+EFF_COL = 29
 # a polarized launch's fallback of the s basis: below |k0 x n|^2 = 1e-12
 # (normal incidence) s = k0 x (1, 0, 0) (pallas_trace.py:744-749)
 POL_FALLBACK = 1e-12
@@ -135,7 +155,8 @@ _KERNEL_KINDS = {"standard": "conic", "plane": "conic",
                  "biconic": "biconic", "toroidal": "toroidal",
                  "zernike": "zernike", "fresnel_zone": "fresnel_zone",
                  "fresnel_designed": "fresnel_designed",
-                 "forbes_qbfs": "qbfs", "forbes_q2d": "q2d"}
+                 "forbes_qbfs": "qbfs", "forbes_q2d": "q2d",
+                 "standard_grating": "conic", "plane_grating": "conic"}
 FRESNEL_KINDS = ("fresnel_zone", "fresnel_designed")
 # the kernels' variants (csrc/gen_trace_common.cuh: VAR_NARROW, VAR_WIDE,
 # VAR_FREEFORM, VAR_FORBES), by the codes the launchers report: sub-slice
@@ -169,10 +190,16 @@ def acoef_width(gkind: str, nu: int, nv: int) -> int:
     return (1 + Q2D_ROWS) * nu if gkind == "q2d" else n_coefs(gkind, nu, nv)
 
 
-def _sag_shape(geom) -> tuple:
-    """(nu, nv) of a geometry: its terms, or its coefficient grid; a Q2D
-    surface's nu counts its basis-changed coefficients (``q2d_layout``),
-    which gaps in its (n, m) terms make more than its terms."""
+def _sag_shape(spec) -> tuple:
+    """(nu, nv) of a surface's geometry: its terms, or its coefficient
+    grid; a Q2D surface's nu counts its basis-changed coefficients
+    (``q2d_layout``), which gaps in its (n, m) terms make more than its
+    terms; a radial phase surface's nu its profile's terms."""
+    prof = spec.phase_profile
+    if spec.interaction == "phase" and prof is not None \
+            and prof.kind == "radial":
+        return prof.num_terms, 0
+    geom = spec.geometry
     if geom.kind in ("polynomial_xy", "chebyshev"):
         return geom.num_x, geom.num_y
     if geom.kind == "forbes_q2d":
@@ -184,18 +211,35 @@ def supports_model(model: OpticModel) -> bool:
     """True if every inner surface is in the ported sub-slices: a conic,
     plane, even- or odd-aspheric, XY-polynomial, Chebyshev, biconic,
     toroidal, Zernike, Forbes Qbfs or Q2D or thin Fresnel surface that
-    refracts or reflects, tilted or not, with no aperture or a radial or
-    offset-radial one, no coating, a simple or a Fresnel one, at most
-    ``MAX_TERMS`` sag coefficients (a Q2D surface: basis-changed ones, of
-    orders |m| up to ``MAX_TERMS``), and the stack fits the kernel's flag
-    table. A Fresnel coating acts on a polarized launch's E-vectors
-    (sub-slice (e)) and leaves an unpolarized one as it is."""
+    refracts or reflects, a linear grating on a conic or plane
+    (``standard_grating``, ``plane_grating``) without a coating, or a conic
+    or plane phase surface with a constant, radial or linear-grating
+    profile (``PHASE_KINDS``; a grid profile stays on the eager trace)
+    without a coating (``pallas_trace.py:80-125``); tilted or not, with no
+    aperture or a radial or offset-radial one, no coating, a simple or a
+    Fresnel one, at most ``MAX_TERMS`` sag coefficients (a Q2D surface:
+    basis-changed ones, of orders |m| up to ``MAX_TERMS``; a radial phase
+    profile: terms), and the stack fits the kernel's flag table. A Fresnel
+    coating acts on a polarized launch's E-vectors (sub-slice (e)) and
+    leaves an unpolarized one as it is."""
     if model.num_surfaces - 1 > MAX_SURFACES:
         return False
     for spec in model.surfaces[1:]:
-        if spec.geometry.kind not in _KERNEL_KINDS:
+        kind = spec.geometry.kind
+        if spec.interaction == "grating":
+            if kind not in ("standard_grating", "plane_grating") \
+                    or spec.coating is not None:
+                return False
+        elif spec.interaction == "phase":
+            prof = spec.phase_profile
+            if (kind not in ("standard", "plane") or prof is None
+                    or prof.kind not in PHASE_KINDS
+                    or spec.coating is not None):
+                return False
+        elif spec.interaction != "refract_reflect" \
+                or kind not in _KERNEL_KINDS:
             return False
-        nu, nv = _sag_shape(spec.geometry)
+        nu, nv = _sag_shape(spec)
         if (max(nu, nv) > NTERM_MASK or n_coefs(
                 _KERNEL_KINDS[spec.geometry.kind], nu, nv) > MAX_TERMS):
             return False
@@ -213,11 +257,13 @@ def supports_model(model: OpticModel) -> bool:
 
 def supports_split_opd(model: OpticModel) -> bool:
     """True when the split-OPD mode applies (``pallas_trace.py:145-156``):
-    an untilted stack of conic and plane surfaces; apertures and simple
-    coatings are allowed (the gap-path decomposition assumes per-surface z
-    frames and axial propagation signs)."""
+    an untilted stack of conic and plane surfaces that refract or reflect
+    (no grating or phase surface); apertures and simple coatings are
+    allowed (the gap-path decomposition assumes per-surface z frames and
+    axial propagation signs)."""
     return supports_model(model) and all(
         spec.geometry.kind in ("standard", "plane")
+        and spec.interaction == "refract_reflect"
         and not spec.has_tilt_decenter for spec in model.surfaces[1:])
 
 
@@ -251,10 +297,13 @@ class SurfaceFlags(NamedTuple):
     "conic", "even", "odd", "poly", "cheb", "biconic", "toroidal",
     "toroidal_inf" (an infinite rotation radius), "zernike", "qbfs", "q2d",
     "fresnel_zone" or "fresnel_designed"; nu the number of sag coefficients
-    (``n_coefs``; a Q2D surface's basis-changed ones) or the x size of a
-    coefficient grid, nv its y size (else 0); coat "none", "simple" or
-    "fresnel"; gextra the Zernike basis or the Q2D (n, m) terms (else
-    None)."""
+    (``n_coefs``; a Q2D surface's basis-changed ones; a radial phase
+    profile's terms) or the x size of a coefficient grid, nv its y size
+    (else 0); coat "none", "simple" or "fresnel"; gextra the Zernike basis
+    or the Q2D (n, m) terms (else None); inter the interaction of
+    sub-slice (f): None (refract or reflect), ("grating",) or ("phase",
+    profile kind, on the Plane class) (the JAX descriptor without the
+    efficiency, which column ``EFF_COL`` carries)."""
     is_plane: bool
     is_refl: bool
     absorbing: bool
@@ -265,6 +314,7 @@ class SurfaceFlags(NamedTuple):
     coat: str
     nv: int = 0
     gextra: Optional[str] = None
+    inter: Optional[tuple] = None
 
 
 def model_flags(model: OpticModel, params=None) -> tuple:
@@ -279,7 +329,11 @@ def model_flags(model: OpticModel, params=None) -> tuple:
         pre = model.surfaces[k - 1]
         absorbing = model.surfaces[pre.material_src].material.absorbing
         gkind = _KERNEL_KINDS[spec.geometry.kind]
-        nu, nv = _sag_shape(spec.geometry) if gkind != "conic" else (0, 0)
+        inter = {"grating": ("grating",),
+                 "phase": ("phase", getattr(spec.phase_profile, "kind", None),
+                           spec.geometry.kind == "plane")
+                 }.get(spec.interaction)
+        nu, nv = _sag_shape(spec) if gkind != "conic" or inter else (0, 0)
         if gkind == "toroidal" and _hint_isinf(spec, params, k, "radius_rot"):
             gkind = "toroidal_inf"
         gextra = {"zernike": getattr(spec.geometry, "zernike_type", None),
@@ -288,7 +342,8 @@ def model_flags(model: OpticModel, params=None) -> tuple:
         flags.append(SurfaceFlags(bool(is_plane), bool(spec.is_reflective),
                                   bool(absorbing), gkind, nu,
                                   bool(spec.has_tilt_decenter),
-                                  spec.aperture is not None, coat, nv, gextra))
+                                  spec.aperture is not None, coat, nv, gextra,
+                                  inter))
     return tuple(flags)
 
 
@@ -296,15 +351,18 @@ def _flag_words(flags) -> list:
     """The kernels' int32 flag word of each surface."""
     words = []
     for (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv,
-         gextra) in flags:
+         gextra, *inter) in flags:
+        inter = inter[0] if inter else None
         if (coat not in ("none", "simple", "fresnel")
                 or gkind not in _GKIND_CODES
                 or not 0 <= nu <= NTERM_MASK or not 0 <= nv <= NTERM_MASK
                 or n_coefs(gkind, nu, nv) > MAX_TERMS
                 or (gkind == "q2d" and (gextra is None or _q2d_count(gextra)
-                                        != nu))):
-            raise ValueError(f"no kernel for coating {coat!r} or sag "
-                             f"{gkind!r} with ({nu}, {nv}) terms")
+                                        != nu))
+                or not _inter_ok(inter, gkind, nu, coat)):
+            raise ValueError(f"no kernel for coating {coat!r}, sag "
+                             f"{gkind!r} with ({nu}, {nv}) terms or "
+                             f"interaction {inter!r}")
         basis = ZERNIKE_BASES.index(gextra) if gkind == "zernike" else 0
         words.append((FLAG_PLANE if is_plane else 0)
                      | (FLAG_REFL if is_refl else 0)
@@ -314,8 +372,33 @@ def _flag_words(flags) -> list:
                      | (FLAG_FRESNEL if coat == "fresnel" else 0)
                      | (_GKIND_CODES[gkind] << GKIND_SHIFT)
                      | (nu << NU_SHIFT) | (nv << NV_SHIFT)
-                     | (basis << BASIS_SHIFT))
+                     | (basis << BASIS_SHIFT) | _inter_bits(inter))
     return words
+
+
+def _inter_ok(inter, gkind: str, nu: int, coat: str) -> bool:
+    """Whether the kernels take a surface's interaction descriptor: a
+    grating or phase surface is conic or plane and uncoated, a phase
+    profile one of ``PHASE_KINDS``, and only a radial one has terms."""
+    if inter is None:
+        return True
+    if gkind != "conic" or coat != "none":
+        return False
+    if inter[0] == "grating":
+        return len(inter) == 1 and nu == 0
+    return (inter[0] == "phase" and len(inter) == 3
+            and inter[1] in PHASE_KINDS and (nu == 0 or inter[1] == "radial"))
+
+
+def _inter_bits(inter) -> int:
+    """The flag-word bits of an interaction descriptor."""
+    if inter is None:
+        return 0
+    bits = INTERACTIONS.index(inter[0]) << INTER_SHIFT
+    if inter[0] == "phase":
+        bits |= PHASE_KINDS.index(inter[1]) << PHASE_SHIFT
+        bits |= FLAG_PLANE_CLS if inter[2] else 0
+    return bits
 
 
 def _q2d_count(terms) -> int:
@@ -412,7 +495,9 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
     mat1 = model.surfaces[pre.material_src].material
     mp1 = params["surfaces"][pre.material_src]["material"]
     n1 = mat1.n(mp1, wls)
-    if spec.is_reflective:
+    # a grating reads its post material even when reflective (a mirror's
+    # post material is its pre material anyway)
+    if spec.is_reflective and spec.interaction != "grating":
         n2 = n1
     else:
         n2 = model.surfaces[spec.material_src].material.n(
@@ -460,6 +545,20 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
              "fresnel_designed": lambda: [gp["focal_length"],
                                           gp["n_design"]]}
     g24 = extra.get(spec.geometry.kind, lambda: [0.0, 0.0])()
+    # sub-slice (f): a grating's strength m lambda / period (both um) per
+    # wavelength and tan of its groove angle; a phase surface's constant
+    # phase, or its linear grating's (Kx, Ky) (a radial profile's terms
+    # ride the acoef row); its efficiency in column 29
+    eff = 0.0
+    if spec.interaction == "grating":
+        g24 = [gp["grating_order"] * wls / gp["grating_period"],
+               torch.tan(gp["groove_angle"])]
+    elif spec.interaction == "phase":
+        pp, prof = sp["phase"], spec.phase_profile
+        g24 = {"constant": lambda: [pp["phase"], 0.0],
+               "linear_grating": lambda: list(prof._K(pp))}.get(
+                   prof.kind, lambda: [0.0, 0.0])()
+        eff = float(prof.efficiency)
 
     # column 27: the signed vertex gap (the split-OPD mode reads it;
     # surface 1's is measured from the launch plane by gen_trace_conic)
@@ -467,7 +566,7 @@ def _pack_surface(model: OpticModel, params, k: int, wls, pos):
     dz_gap = torch.where(torch.isfinite(dz_gap), dz_gap, 0.0)
     cols = ([radius_inv, conic, pos[k], n1, n2, alpha, coat, wls]
             + rot + tvec + apr
-            + g24 + [0.0, dz_gap, radius_inv_lo, 0.0, 0.0, 0.0])
+            + g24 + [0.0, dz_gap, radius_inv_lo, eff, 0.0, 0.0])
     return torch.stack([col(v) for v in cols], dim=-1)
 
 
@@ -527,17 +626,22 @@ def pack_asphere_coeffs(model: OpticModel, params):
     a multiple of 8 (``pallas_trace.py::pack_asphere_coeffs`` and
     ``_geom_coeff_vector``): the even or odd asphere's terms, the XY
     polynomial's and the Chebyshev sag's grids row-major (C[i, j] at
-    i * nv + j), the toroid's y-polynomial, the Zernike coefficients and
-    the Forbes surfaces' basis-changed ones (``_forbes_coeff_vector``);
-    other surfaces carry none. The packing is differentiable, so
-    coefficient gradients flow back into the tree."""
+    i * nv + j), the toroid's y-polynomial, the Zernike coefficients,
+    the Forbes surfaces' basis-changed ones (``_forbes_coeff_vector``) and
+    a radial phase profile's coefficients; other surfaces carry none. The
+    packing is differentiable, so coefficient gradients flow back into the
+    tree."""
     ref = params["surfaces"][0]["thickness"]
     vecs = []
     for k in range(1, model.num_surfaces):
-        geom = model.surfaces[k].geometry
+        spec = model.surfaces[k]
+        geom = spec.geometry
         leaf = _COEF_LEAVES.get(geom.kind)
         v = None
-        if leaf is not None:
+        if _sag_shape(spec)[0] and spec.interaction == "phase":
+            v = params["surfaces"][k]["phase"]["coefficients"].to(
+                torch.float32).reshape(-1)
+        elif leaf is not None:
             v = params["surfaces"][k]["geom"][leaf].to(
                 torch.float32).reshape(-1)
             v = v if v.shape[0] else None
@@ -1146,6 +1250,111 @@ def _kahan(opd, opd_c, v):
     return tk, (tk - opd) - yk
 
 
+def _doe_plain(inter, is_plane, is_refl, c, coefs, x, y, L, M, N, inten,
+               opd, opd_c, valid, opd_mode):
+    """Sub-slice (f) at the landed point (x, y), in the kernels' operation
+    order (``csrc/gen_trace_common.cuh::doe_forward``;
+    ``pallas_trace.py:1527-1662``): the conic or plane slope and unit
+    normal, then the linear grating's diffraction or the phase profile's
+    update. Returns (L, M, N, intensity, opd, opd_c, valid)."""
+    ri, conic, n1, n2 = c(0), c(1), c(3), c(4)
+    zero = torch.zeros_like(x)
+    if is_plane:
+        dfdx = dfdy = nx = ny = zero
+        nz = -torch.ones_like(x)
+    else:
+        r2 = x * x + y * y
+        arg = 1.0 - (1.0 + conic) * ri * ri * r2
+        inv_root = torch.reciprocal(_sqrt(torch.where(arg > _EPS, arg, 1.0)))
+        dfdx = x * ri * inv_root
+        dfdy = y * ri * inv_root
+        inv_n = torch.reciprocal(_sqrt(dfdx * dfdx + dfdy * dfdy + 1.0))
+        nx, ny, nz = dfdx * inv_n, dfdy * inv_n, -inv_n
+    if inter[0] == "grating":
+        # the groove tangent t = normalize(1, tan a, dfdx + tan a dfdy),
+        # the grating vector f = -normalize(n x t), the strength c24 =
+        # m lambda / period scaled by f's xy projection
+        ta = c(25)
+        tz = dfdx + ta * dfdy
+        tinv = torch.reciprocal(_sqrt(1.0 + ta * ta + tz * tz))
+        tx, ty, tz = tinv, ta * tinv, tz * tinv
+        fx = ny * tz - nz * ty
+        fy = nz * tx - nx * tz
+        fz = nx * ty - ny * tx
+        finv = torch.reciprocal(_sqrt(fx * fx + fy * fy + fz * fz))
+        fx, fy, fz = -fx * finv, -fy * finv, -fz * finv
+        g = c(24) * _sqrt(fx * fx + fy * fy)
+        # the normal aligned along the ray (sign(0) := +1)
+        flip = (L * nx + M * ny + N * nz) >= 0
+        nxa, nya, nza = (torch.where(flip, v, -v) for v in (nx, ny, nz))
+        kx, ky, kz = n1 * L, n1 * M, n1 * N
+        kdn = kx * nxa + ky * nya + kz * nza
+        tx2 = kx - kdn * nxa + g * fx
+        ty2 = ky - kdn * nya + g * fy
+        tz2 = kz - kdn * nza + g * fz
+        disc = n2 * n2 - (tx2 * tx2 + ty2 * ty2 + tz2 * tz2)
+        ok = disc >= 0
+        kn = _sqrt(torch.where(ok, disc, 1.0))
+        den = n2
+        if is_refl:
+            kn, den = -kn, -n2
+        Lo = (tx2 + kn * nxa) / den
+        Mo = (ty2 + kn * nya) / den
+        No = (tz2 + kn * nza) / den
+        oinv = torch.reciprocal(_sqrt(Lo * Lo + Mo * Mo + No * No))
+        return (Lo * oinv, Mo * oinv, No * oinv, inten, opd, opd_c,
+                valid & ok)
+    _, pkind, plane_cls = inter
+    if plane_cls:               # the Plane class's +z normal
+        nx, ny, nz = zero, zero, torch.ones_like(x)
+    if pkind == "constant":
+        phase = c(24).expand_as(x)
+        pgx = pgy = zero
+    elif pkind == "radial":
+        r2p = x * x + y * y
+        rp = _sqrt(r2p)
+        phase, d_dr, term, rpow = zero, zero, r2p, rp
+        for i, ci in enumerate(coefs):
+            phase = phase + ci * term
+            d_dr = d_dr + ci * (2.0 * (i + 1.0)) * rpow
+            term = term * r2p
+            rpow = rpow * r2p
+        ratio = d_dr / torch.where(rp == 0, 1.0, rp)
+        pgx, pgy = ratio * x, ratio * y
+    else:                       # the linear grating (Kx, Ky) = c24, c25
+        phase = c(24) * x + c(25) * y
+        pgx, pgy = c(24).expand_as(x), c(25).expand_as(x)
+    # the surface-projected gradient G = pg - (pg . n) n
+    gdn = pgx * nx + pgy * ny
+    Gx, Gy, Gz = pgx - gdn * nx, pgy - gdn * ny, -gdn * nz
+    k0 = _TWO_PI_F / c(7)
+    kix, kiy, kiz = n1 * k0 * L, n1 * k0 * M, n1 * k0 * N
+    kdn = kix * nx + kiy * ny + kiz * nz
+    kpx = kix - kdn * nx + Gx
+    kpy = kiy - kdn * ny + Gy
+    kpz = kiz - kdn * nz + Gz
+    nk = n2 * k0
+    rsq = nk * nk - (kpx * kpx + kpy * kpy + kpz * kpz)
+    evan = rsq < 0
+    # an evanescent order: intensity 0, the ray kept; the double where
+    # keeps the root's cotangent finite
+    inten = inten * (~evan).to(inten.dtype)
+    alpha = _sqrt(torch.where(evan, 1.0, torch.clamp(rsq, min=0.0)))
+    alpha = torch.where(evan, 0.0, alpha)
+    if is_refl:
+        alpha = -alpha
+    kox, koy, koz = kpx + alpha * nx, kpy + alpha * ny, kpz + alpha * nz
+    minv = torch.reciprocal(_sqrt(kox * kox + koy * koy + koz * koz))
+    # OPD -= phase / k0 (um against mm: the reference's quirk, kept)
+    shift = -phase / k0
+    if opd_mode == "kahan":
+        opd, opd_c = _kahan(opd, opd_c, shift)
+    else:
+        opd = opd + shift
+    inten = inten * c(EFF_COL).detach()
+    return kox * minv, koy * minv, koz * minv, inten, opd, opd_c, valid
+
+
 def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
     """One surface of the plain K1 and K3 (``csrc/gen_trace_common.cuh::
     surface_step``) in the kernels' operation order: ``flag`` is the
@@ -1155,7 +1364,7 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
     list of E-vectors, ``sigma`` the static propagation sign (read by the
     split mode only); returns the state after it."""
     (is_plane, is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv,
-     gextra) = flag
+     gextra, inter) = flag
     x, y, z, L, M, N, inten, opd, opd_c, valid, *pol = state
     split = opd_mode == "split"
     ri, conic, pos_z, n1, n2, alpha = (c(j) for j in range(6))
@@ -1239,7 +1448,11 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
     k0 = (L, M, N)              # the local directions before the interaction
     if conic_like and is_plane:
         cos_i, normal = torch.abs(N), "plane"
-    if conic_like and is_plane and is_refl:
+    if inter is not None:       # sub-slice (f): no chain update, no coating
+        L, M, N, inten, opd, opd_c, valid = _doe_plain(
+            inter, is_plane, is_refl, c, coefs, x, y, L, M, N, inten, opd,
+            opd_c, valid, opd_mode)
+    elif conic_like and is_plane and is_refl:
         N = -N
     elif conic_like and is_plane:
         u = n1 / n2
@@ -1279,8 +1492,8 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
     # the polarization chain, on the local directions before and after the
     # interaction, before the scalar coating and the globalize (the
     # E-vectors are not rotated into the global frame, pallas_trace.py:
-    # 1517-1519, 1724-1731)
-    if pol:
+    # 1517-1519, 1724-1731); a grating or phase step leaves it as it is
+    if pol and inter is None:
         diag = _fresnel_diag(c(3), c(4), cos_i, is_refl) \
             if coat == "fresnel" else None
         pol = [_polar_update(pol[0], k0, (L, M, N), normal, diag,
@@ -1299,6 +1512,13 @@ def _surface_plain(flag, c, coefs, state, sigma: float, opd_mode: str):
     elif not split:
         z = z + pos_z
     return (x, y, z, L, M, N, inten, opd, opd_c, valid, *pol)
+
+
+def split_takes(flags) -> bool:
+    """Whether the split-OPD mode takes these ``SurfaceFlags``: untilted
+    conic and plane surfaces that refract or reflect."""
+    return all(f.gkind == "conic" and not f.has_cs and f.inter is None
+               for f in (SurfaceFlags(*f) for f in flags))
 
 
 def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
@@ -1320,9 +1540,9 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     if opd_mode not in OPD_MODES:
         raise ValueError(f"unknown OPD mode {opd_mode!r}")
     split = opd_mode == "split"
-    if split and any(f.gkind != "conic" or f.has_cs for f in flags):
+    if split and not split_takes(flags):
         raise ValueError("the split-OPD mode takes untilted conic/plane "
-                         "surfaces only")
+                         "surfaces that refract or reflect only")
 
     def g(j):                               # per-field constant, [1, F, 1]
         return gen[:, j].reshape(1, F, 1)
@@ -1421,14 +1641,21 @@ _SIGNATURES["huygens"] = [
                         ctypes.c_int, ctypes.c_void_p,
                         ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
 # K2: one library per OPD mode (csrc/gen_grad.cu, gen_grad_kahan.cu,
-# gen_grad_split.cu) and per launch (the polarized instances in
-# gen_grad_pol.cu, gen_grad_pol_kahan.cu, gen_grad_pol_split.cu), one
-# signature
+# gen_grad_split.cu), per launch (the polarized instances in
+# gen_grad_pol.cu, gen_grad_pol_kahan.cu, gen_grad_pol_split.cu) and for
+# the systems with a grating or phase surface (sub-slice (f), the plain and
+# Kahan modes: gen_grad_doe.cu, gen_grad_doe_kahan.cu, gen_grad_pol_doe.cu,
+# gen_grad_pol_doe_kahan.cu), one signature
 GRAD_LIBS = {"plain": "gen_grad", "kahan": "gen_grad_kahan",
              "split": "gen_grad_split"}
 GRAD_POL_LIBS = {"plain": "gen_grad_pol", "kahan": "gen_grad_pol_kahan",
                  "split": "gen_grad_pol_split"}
-for _lib in list(GRAD_LIBS.values()) + list(GRAD_POL_LIBS.values()):
+GRAD_DOE_LIBS = {"plain": "gen_grad_doe", "kahan": "gen_grad_doe_kahan"}
+GRAD_POL_DOE_LIBS = {"plain": "gen_grad_pol_doe",
+                     "kahan": "gen_grad_pol_doe_kahan"}
+for _lib in (list(GRAD_LIBS.values()) + list(GRAD_POL_LIBS.values())
+             + list(GRAD_DOE_LIBS.values())
+             + list(GRAD_POL_DOE_LIBS.values())):
     _SIGNATURES[_lib] = [
         ("gen_grad_partials_size", [ctypes.c_void_p] + [ctypes.c_int] * 3
          + [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
@@ -1436,6 +1663,20 @@ for _lib in list(GRAD_LIBS.values()) + list(GRAD_POL_LIBS.values()):
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
+
+
+def has_doe(flags) -> bool:
+    """Whether any of the ``SurfaceFlags`` is a grating or phase surface."""
+    return any(SurfaceFlags(*f).inter is not None for f in flags)
+
+
+def grad_lib(opd_mode: str, polar, doe: bool) -> str:
+    """The K2 library of an OPD mode, a launch polarization (a
+    ``PolarLaunch`` or None) and a system with (``doe``) or without a
+    grating or phase surface."""
+    libs = ((GRAD_POL_DOE_LIBS if doe else GRAD_POL_LIBS) if polar
+            else (GRAD_DOE_LIBS if doe else GRAD_LIBS))
+    return libs[opd_mode]
 
 
 def polar_words(polar):
@@ -1501,10 +1742,9 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
     Returns (W, S, F, n, C), the flag words and the mode's code."""
     if opd_mode not in OPD_MODES:
         raise ValueError(f"unknown OPD mode {opd_mode!r}")
-    if opd_mode == "split" and any(f.gkind != "conic" or f.has_cs
-                                   for f in flags):
+    if opd_mode == "split" and not split_takes(flags):
         raise ValueError("the split-OPD mode takes untilted conic/plane "
-                         "surfaces only")
+                         "surfaces that refract or reflect only")
     dev = Px.device
     for name, t in (("gen", gen), ("consts", consts), ("acoef", acoef),
                     ("Px", Px), ("Py", Py), *more.items()):
@@ -1564,6 +1804,7 @@ def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     gen_trace_cuda.launches_by_mode[opd_mode] += 1
     gen_trace_cuda.launches_by_variant[VARIANTS[variant.value]] += 1
     gen_trace_cuda.launches_polarized += polar is not None
+    gen_trace_cuda.launches_doe += has_doe(flags)
     return out
 
 
@@ -1571,6 +1812,7 @@ gen_trace_cuda.launches = 0
 gen_trace_cuda.launches_by_mode = dict.fromkeys(OPD_MODES, 0)
 gen_trace_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 gen_trace_cuda.launches_polarized = 0
+gen_trace_cuda.launches_doe = 0
 
 
 def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,

@@ -7,8 +7,8 @@ image, K3 takes a ray bundle as it is (from ``trace.raygen.generate_rays``
 or any other source), runs each surface of the stack (validity starting
 true, the plain OPD sum), and returns the rays on the image surface, before
 the image thickness, with NaN in the state of the rays lost on the way. The
-surfaces are K1's: sub-slices (a), (b) and (c)
-(``gen_trace.supports_model``), one wavelength per call.
+surfaces are K1's: sub-slices (a), (b), (c) and (f), the gratings and
+phase surfaces (``gen_trace.supports_model``), one wavelength per call.
 
 The module holds
 - ``trace_plain``: the plain PyTorch version, K1's per-surface body

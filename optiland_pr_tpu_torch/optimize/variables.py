@@ -19,8 +19,8 @@ __all__ = ["Variable", "VariableList", "make_variable", "NOT_PORTED"]
 
 # variable types of the JAX package whose leaves the port's parameter tree
 # does not have yet (ROADMAP.md)
-NOT_PORTED = ("f", "grating_period", "grid_sag", "nurbs_ctrlpt",
-              "nurbs_control_point", "nurbs_weight", "material")
+NOT_PORTED = ("f", "grid_sag", "nurbs_ctrlpt", "nurbs_control_point",
+              "nurbs_weight", "material")
 
 
 @dataclasses.dataclass
@@ -86,6 +86,10 @@ _PATHS = {
     "norm_radius": ("geom", "norm_radius"),
     "norm_x": ("geom", "norm_x"),
     "norm_y": ("geom", "norm_y"),
+    # a grating's period (um): the geometry's leaf, where the tree holds it
+    # (the JAX package's variable points at ("grating", "period"), which
+    # its tree does not have: ROADMAP.md section 3)
+    "grating_period": ("geom", "grating_period"),
 }
 
 
@@ -97,7 +101,7 @@ def make_variable(model, variable_type: str, surface_number: int = None,
     (``coeff_number=i`` of an even or odd asphere), polynomial_coeff,
     chebyshev_coeff and zernike_coeff (``coeff_index=(i, j)`` of a grid or
     ``coeff_number=i``), norm_radius (Zernike), norm_x and norm_y
-    (Chebyshev), or ``path``
+    (Chebyshev), grating_period (a grating surface's period), or ``path``
     (``path=...``, optional ``element=...``). The JAX package's other types
     (``NOT_PORTED``) raise NotImplementedError."""
     t = variable_type

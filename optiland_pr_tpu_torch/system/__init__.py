@@ -4,6 +4,9 @@ from .apertures import (ApertureDef, OffsetRadialAperture, RadialAperture,
                         configure_aperture)
 from .coatings import CoatingDef, FresnelCoating, SimpleCoating
 from . import apodization
+from .phase import (ConstantPhaseProfile, GridPhaseProfile,
+                    LinearGratingPhaseProfile, PhaseProfileDef,
+                    RadialPhaseProfile)
 from .constraints import (ChiefRayHeightSolve, MarginalRayHeightSolve,
                           Pickup, QuickFocusSolve, apply_constraints)
 
@@ -12,4 +15,6 @@ __all__ = ["Optic", "OpticModel", "SurfaceDef", "positions_from_params",
            "configure_aperture", "CoatingDef", "SimpleCoating",
            "FresnelCoating", "apodization", "Pickup",
            "MarginalRayHeightSolve", "ChiefRayHeightSolve", "QuickFocusSolve",
-           "apply_constraints"]
+           "apply_constraints", "PhaseProfileDef", "ConstantPhaseProfile",
+           "RadialPhaseProfile", "LinearGratingPhaseProfile",
+           "GridPhaseProfile"]

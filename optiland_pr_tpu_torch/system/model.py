@@ -2,10 +2,12 @@
 
 - ``OpticModel`` / ``SurfaceDef``: static structure (geometry types, material
   models, stop index, field and wavelength counts, an object-space
-  telecentric launch, the launch polarization). Every surface refracts or
-  reflects; thin-lens, grating and phase interactions come with later
-  slices.
+  telecentric launch, the launch polarization), and each surface's
+  interaction: "refract_reflect", "grating" (a linear grating on a conic or
+  plane, ``geometry/extras.py``) or "phase" (a phase profile,
+  ``system/phase.py``); thin-lens interactions come with a later slice.
 - the parameter tree: every number (radii, conics, asphere coefficients,
+  grating periods, orders and groove angles, phase-profile parameters,
   thicknesses, material data, aperture extents, coating factors, tilts and
   decenters, field coordinates, wavelengths) as tensors, so autograd flows
   through all of them.
@@ -43,6 +45,8 @@ class SurfaceDef:
     is_object: bool = False
     is_image: bool = False
     coating: Any = None                # CoatingDef | None
+    interaction: str = "refract_reflect"   # | "grating" | "phase"
+    phase_profile: Any = None          # PhaseProfileDef of a phase surface
     comment: str = ""
 
 
@@ -104,6 +108,9 @@ def make_surface_params(spec: SurfaceDef, thickness, geom_kw: dict,
         p["aperture"] = aperture_params
     if spec.coating is not None:
         p["coating"] = spec.coating.default_params()
+    if spec.phase_profile is not None:
+        p["phase"] = spec.phase_profile.default_params(
+            **geom_kw.get("phase_kw", {}))
     if spec.has_tilt_decenter:
         p["cs"] = {k: float(cs_kw.get(k, 0.0))
                    for k in ("dx", "dy", "dz", "rx", "ry", "rz")}

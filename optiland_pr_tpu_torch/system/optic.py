@@ -1,7 +1,8 @@
 """The user-facing system builder (port of ``optiland_pr_tpu/system/optic.py``
 for standard, plane, even/odd aspheric, XY-polynomial, Chebyshev, biconic,
 toroidal, Zernike, Forbes Qbfs/Q2D and thin Fresnel surfaces that refract
-or reflect, with
+or reflect, linear gratings on conic or plane substrates and phase
+surfaces with a ``system/phase.py`` profile, with
 radial apertures, simple and Fresnel coatings and tilts/decenters), with
 pickups and solves, an object-space telecentric launch, a pupil apodization
 and a launch polarization.
@@ -21,8 +22,9 @@ from ..config import default_float, resolve_device
 from ..core.distributions import generate_distribution
 from ..geometry import (Biconic, ChebyshevSag, EvenAsphere, ForbesQ2d,
                         ForbesQbfs, FresnelDesignedSag, FresnelZoneSag,
-                        OddAsphere, Plane, PolynomialXY, StandardGeometry,
-                        Toroidal, ZernikeSag)
+                        OddAsphere, Plane, PlaneGrating, PolynomialXY,
+                        StandardGeometry, StandardGrating, Toroidal,
+                        ZernikeSag)
 from ..materials import resolve_material
 from ..materials.base import Mirror
 from ..trace.paraxial import Paraxial
@@ -52,7 +54,27 @@ _GEOMETRY_BUILDERS = {
         len(kw.get("coefficients") or [])
         or (max(kw.get("radial_terms", {0: 0}).keys()) + 1)),
     "forbes_q2d": lambda kw: ForbesQ2d(tuple(kw["terms"])),
+    "standard_grating": lambda kw: StandardGrating(),
+    "plane_grating": lambda kw: PlaneGrating(),
+    "grating": lambda kw: StandardGrating(),
+    # a phase surface on a conic of finite radius, else on the Plane class
+    # (whose +z normal the phase update's sign reads)
+    "phase": lambda kw: (StandardGeometry() if not host_isinf(
+        kw.get("radius", math.inf), False) else Plane()),
 }
+_GRATING_TYPES = ("standard_grating", "plane_grating", "grating")
+
+
+def _interaction(entry) -> str:
+    """A surface entry's interaction: "phase" for the phase type or any
+    surface given a ``phase_profile``, "grating" for the grating types,
+    else "refract_reflect"."""
+    if entry["surface_type"] == "phase" or \
+            entry["geom_kw"].get("phase_profile") is not None:
+        return "phase"
+    if entry["surface_type"] in _GRATING_TYPES:
+        return "grating"
+    return "refract_reflect"
 
 
 def _shape2d(coeffs) -> tuple:
@@ -109,8 +131,13 @@ class Optic:
         ``norm_radius``), ``forbes_qbfs`` (``coefficients`` or
         ``radial_terms``, ``norm_radius``), ``forbes_q2d`` (``terms``,
         ``coefficients``, ``norm_radius``), ``fresnel_zone`` (``zone_depth``)
-        and ``fresnel_designed`` (``focal_length``, ``n_design``); others
-        raise at ``build``. ``coating`` is a ``CoatingDef`` or ``"fresnel"``."""
+        and ``fresnel_designed`` (``focal_length``, ``n_design``), the
+        linear gratings ``grating`` and ``standard_grating`` (on a conic) and
+        ``plane_grating`` (``grating_order``, ``grating_period`` in um,
+        ``groove_orientation_angle``), and ``phase`` (``phase_profile``, a
+        ``system/phase.py`` profile, and its parameters ``phase_kw``; on a
+        plane unless a finite ``radius`` is given); others raise at
+        ``build``. ``coating`` is a ``CoatingDef`` or ``"fresnel"``."""
         entry = dict(surface_type=surface_type, radius=radius,
                      thickness=thickness, conic=conic, material=material,
                      is_stop=is_stop, comment=comment, dx=dx, dy=dy, dz=dz,
@@ -331,6 +358,8 @@ class Optic:
                 is_stop=bool(e["is_stop"]), aperture=ap_def,
                 has_tilt_decenter=has_td, is_object=k == 0,
                 is_image=k == len(self._surfaces) - 1, coating=coating,
+                interaction=_interaction(e),
+                phase_profile=e["geom_kw"].get("phase_profile"),
                 comment=e["comment"])
             specs.append(spec)
             cs_kw = {kk: e[kk] for kk in ("dx", "dy", "dz", "rx", "ry", "rz")}

@@ -3,10 +3,12 @@
 
 Every spot, operand and analysis call asks ``final_rays`` for the final ray
 state. Eligible systems are those ``supports_model`` and ``gen_eligible``
-accept (the ported surfaces and launch modes, the telecentric one among
-them), traced without apodization or with one of the seven closed-form
-profiles, which K1 evaluates itself, unpolarized or with any launch
-polarization (K1 carries the Jones chain, Fresnel coatings included). On a
+accept (the ported surfaces, the gratings and the constant, radial and
+linear-grating phase surfaces among them, and launch modes, the telecentric
+one among them; a grid phase profile runs the eager trace), traced without
+apodization or with one of the seven closed-form profiles, which K1
+evaluates itself, unpolarized or with any launch polarization (K1 carries
+the Jones chain, Fresnel coatings included). On a
 CUDA device, ``"auto"`` sends every eligible call to the K1 kernel
 (``kernels/gen_trace.py``), whose gradient is the K2 kernel
 (``kernels/gen_grad.py``): a merit's gradient through such a call runs K2

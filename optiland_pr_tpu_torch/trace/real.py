@@ -1,10 +1,12 @@
 """Eager real-ray trace (port of ``optiland_pr_tpu/trace/real.py``).
 
 This is the port's CPU path, the reference every other engine is held
-against, and differentiable by autograd. A polarized trace
-(``model.polarization`` other than "ignore") carries each ray's 3x3
-polarization chain through the refract/reflect step of every surface and
-takes the final intensity from it. The surface loop runs eagerly over
+against, and differentiable by autograd. Each surface refracts or reflects,
+diffracts at a linear grating, or applies a phase profile (its
+``interaction``). A polarized trace (``model.polarization`` other than
+"ignore") carries each ray's 3x3 polarization chain through the
+refract/reflect step of every surface (the grating and phase steps leave it
+as it is) and takes the final intensity from it. The surface loop runs eagerly over
 the static surface list; ray validity is carried by a mask, never by dropping
 rays.
 
@@ -77,35 +79,12 @@ def trace_surface(model: OpticModel, params, k: int, rays: R.Rays,
         inside = spec.aperture.contains(sp["aperture"], rays.x, rays.y)
         rays = R.clip(rays, ~inside)
 
-    # ---- refract or reflect -------------------------------------------------
-    nx, ny, nz = spec.geometry.normal(sp["geom"], rays.x, rays.y)
-    L0, M0, N0 = rays.L, rays.M, rays.N      # the directions before it
-    if spec.is_reflective:
-        rays, ok_i = R.reflect(rays, nx, ny, nz)
-        n2 = n1
-    else:
-        mat2, mp2 = _post_material(model, params, k)
-        n2 = mat2.n(mp2, wl)
-        rays, ok_i = R.refract(rays, nx, ny, nz, n1, n2)
-    valid = valid & ok_i
-
-    # scalar intensity coating, after the interaction
-    coating = spec.coating
-    if coating is not None and not coating.polarization_dependent:
-        factor = coating.intensity_factor(sp["coating"], spec.is_reflective)
-        rays = rays.replace(intensity=rays.intensity * factor)
-
-    # the polarization chain, in the surface's frame (a Fresnel coating's
-    # Jones matrix at the angle of incidence, else the bare rotation)
-    if rays.p is not None:
-        jones = None
-        if coating is not None and coating.polarization_dependent:
-            _, _, _, cosi = R.align_normal(L0, M0, N0, nx, ny, nz)
-            aoi = torch.arccos(torch.clamp(cosi, -1.0, 1.0))
-            jones = coating.jones(n1, n2, aoi, spec.is_reflective)
-        rays = rays.replace(p=apply_polarization_update(
-            rays.p, L0, M0, N0, rays.L, rays.M, rays.N, jones,
-            normal=(nx, ny, nz)))
+    interact = _INTERACTIONS.get(spec.interaction)
+    if interact is None:
+        raise ValueError(f"unknown interaction {spec.interaction!r}")
+    rays, ok_i = interact(spec, sp, rays, model, params, k, wl, n1)
+    if ok_i is not None:
+        valid = valid & ok_i
 
     if spec.has_tilt_decenter:
         x, y, z, L, M, N = globalize(Rm, cs["dx"], cs["dy"], tz + cs["dz"],
@@ -115,6 +94,99 @@ def trace_surface(model: OpticModel, params, k: int, rays: R.Rays,
     else:
         rays = rays.replace(z=rays.z + tz)
     return rays, valid
+
+
+def _refract_reflect(spec, sp, rays, model, params, k, wl, n1):
+    """Refraction or reflection at the surface's normal, the scalar
+    coating's factor after it, and the polarization chain's update in the
+    surface's frame (a Fresnel coating's Jones matrix at the angle of
+    incidence, else the bare rotation). Returns (rays, ok)."""
+    nx, ny, nz = spec.geometry.normal(sp["geom"], rays.x, rays.y)
+    L0, M0, N0 = rays.L, rays.M, rays.N      # the directions before it
+    if spec.is_reflective:
+        rays, ok_i = R.reflect(rays, nx, ny, nz)
+        n2 = n1
+    else:
+        mat2, mp2 = _post_material(model, params, k)
+        n2 = mat2.n(mp2, wl)
+        rays, ok_i = R.refract(rays, nx, ny, nz, n1, n2)
+
+    coating = spec.coating
+    if coating is not None and not coating.polarization_dependent:
+        factor = coating.intensity_factor(sp["coating"], spec.is_reflective)
+        rays = rays.replace(intensity=rays.intensity * factor)
+
+    if rays.p is not None:
+        jones = None
+        if coating is not None and coating.polarization_dependent:
+            _, _, _, cosi = R.align_normal(L0, M0, N0, nx, ny, nz)
+            aoi = torch.arccos(torch.clamp(cosi, -1.0, 1.0))
+            jones = coating.jones(n1, n2, aoi, spec.is_reflective)
+        rays = rays.replace(p=apply_polarization_update(
+            rays.p, L0, M0, N0, rays.L, rays.M, rays.N, jones,
+            normal=(nx, ny, nz)))
+    return rays, ok_i
+
+
+def _grating(spec, sp, rays, model, params, k, wl, n1):
+    """Linear-grating diffraction: the grating vector from the geometry,
+    the period divided by the grating vector's projection on the xy plane;
+    n2 is the post-material's index even on a reflective grating. The
+    polarization chain is left as it is. Returns (rays, ok)."""
+    nx, ny, nz = spec.geometry.normal(sp["geom"], rays.x, rays.y)
+    mat2, mp2 = _post_material(model, params, k)
+    n2 = mat2.n(mp2, wl)
+    gp = sp["geom"]
+    fx, fy, fz = spec.geometry.grating_vector(gp, rays.x, rays.y)
+    period = gp["grating_period"] / torch.sqrt(fx**2 + fy**2)
+    return R.grating_diffract(rays, nx, ny, nz, fx, fy, fz,
+                              gp["grating_order"], period, n1, n2,
+                              spec.is_reflective)
+
+
+def _phase(spec, sp, rays, model, params, k, wl, n1):
+    """The phase update: the tangential wavevector gains the profile's
+    surface-projected gradient, the normal part is rebuilt from |k_out| =
+    n2 k0 (n2 = n1 on a reflective surface), an evanescent order's
+    intensity is set to 0 (the ray stays valid, and the double where keeps
+    the root's cotangent finite), the OPD shifts by -phase / k0 (um against
+    the mm path lengths: the reference's quirk, kept), the intensity scales
+    by the efficiency; the polarization chain is left as it is. Returns
+    (rays, None): no ray is lost here."""
+    nx, ny, nz = spec.geometry.normal(sp["geom"], rays.x, rays.y)
+    mat2, mp2 = _post_material(model, params, k)
+    n2 = n1 if spec.is_reflective else mat2.n(mp2, wl)
+    k0 = 2 * torch.pi / wl
+    pp = sp["phase"]
+    prof = spec.phase_profile
+    phase_val = prof.phase(pp, rays.x, rays.y)
+    gx, gy, gz = prof.gradient(pp, rays.x, rays.y)
+    g_dot_n = gx * nx + gy * ny + gz * nz
+    Gx, Gy, Gz = gx - g_dot_n * nx, gy - g_dot_n * ny, gz - g_dot_n * nz
+    kix, kiy, kiz = n1 * k0 * rays.L, n1 * k0 * rays.M, n1 * k0 * rays.N
+    ki_dot_n = kix * nx + kiy * ny + kiz * nz
+    kpx = kix - ki_dot_n * nx + Gx
+    kpy = kiy - ki_dot_n * ny + Gy
+    kpz = kiz - ki_dot_n * nz + Gz
+    R_sq = (n2 * k0) ** 2 - (kpx**2 + kpy**2 + kpz**2)
+    evanescent = R_sq < 0
+    rays = R.clip(rays, evanescent)
+    alpha = torch.sqrt(torch.where(evanescent, 1.0,
+                                   torch.clamp(R_sq, min=0.0)))
+    alpha = torch.where(evanescent, 0.0, alpha)
+    if spec.is_reflective:
+        alpha = -alpha
+    kox = kpx + alpha * nx
+    koy = kpy + alpha * ny
+    koz = kpz + alpha * nz
+    mag = torch.sqrt(kox**2 + koy**2 + koz**2)
+    return rays.replace(L=kox / mag, M=koy / mag, N=koz / mag,
+                        opd=rays.opd - phase_val / k0,
+                        intensity=rays.intensity * prof.efficiency), None
+
+
+_INTERACTIONS = {"refract_reflect": _refract_reflect, "grating": _grating,
+                 "phase": _phase}
 
 
 def _nanify(rays: R.Rays, valid) -> R.Rays:

@@ -309,11 +309,13 @@ def polarized_builders(name, state="linear"):
 
 def jax_flags_as_port(flags) -> tuple:
     """The JAX package's kernel flags (is_plane, is_refl, absorbing, gkind,
-    nu, nv, has_cs, has_ap, coat, gextra, inter) as the port's: the fields
-    of the ported sub-slices, (is_plane, is_refl, absorbing, gkind, nu,
-    has_cs, has_ap, coat, nv, gextra)."""
+    nu, nv, has_cs, has_ap, coat, gextra, inter) as the port's: (is_plane,
+    is_refl, absorbing, gkind, nu, has_cs, has_ap, coat, nv, gextra,
+    inter), a phase surface's inter without the efficiency (the port packs
+    it in a constant column)."""
     return tuple(SurfaceFlags(f[0], f[1], f[2], f[3], _port_nu(f), f[6], f[7],
-                              f[8], f[5], f[9]) for f in flags)
+                              f[8], f[5], f[9], f[10] and f[10][:3])
+                 for f in flags)
 
 
 def _port_nu(f):

@@ -254,7 +254,7 @@ def test_what_is_not_ported_raises():
             p.model, p.params, surface_number=3, Hx=0.0, Hy=0.0,
             num_rays=3, wavelength=0.55)
     with pytest.raises(NotImplementedError, match="not ported"):
-        p.add_variable("grating_period", surface_number=1)
+        p.add_variable("f", surface_number=1)
     with pytest.raises(ValueError, match="unknown variable type"):
         p.add_variable("no_such_type", surface_number=1)
     lens = TCooke()

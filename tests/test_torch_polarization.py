@@ -342,9 +342,12 @@ def _interpreted_k1(jb, fields, px, py, apod=None):
         jm.primary_wavelength_idx])], fields, apodization=apod)
     f = diff_gen_trace(tables["flags"], px.shape[0] // 128, True, True,
                        False, jm.polarization, False, False, apod)
-    return tables, f(tables["gen"], tables["consts"], tables["acoef"],
-                     jnp.asarray(px).reshape(-1, 128),
-                     jnp.asarray(py).reshape(-1, 128))
+    # jitted: one compile of the interpreted kernel costs less than its
+    # operations run one by one
+    return tables, jax.jit(f)(tables["gen"], tables["consts"],
+                              tables["acoef"],
+                              jnp.asarray(px).reshape(-1, 128),
+                              jnp.asarray(py).reshape(-1, 128))
 
 
 @pytest.fixture(scope="module")
@@ -475,8 +478,10 @@ def test_plain_k2_matches_interpreted_pallas_k2():
             final_prop=True, interpret=True, differentiable=True), jnp,
             len(fields))
 
-    vj, (gj, dpx_j, dpy_j) = jax.value_and_grad(merit_pallas, (0, 1, 2))(
-        jp, jnp.asarray(px), jnp.asarray(py))
+    # jitted: one compile of the interpreted kernels costs less than their
+    # operations run one by one
+    vj, (gj, dpx_j, dpy_j) = jax.jit(jax.value_and_grad(
+        merit_pallas, (0, 1, 2)))(jp, jnp.asarray(px), jnp.asarray(py))
     tm, tp = tb().build(device="cpu", dtype=F32)
     leaves = [t for t in jax.tree_util.tree_leaves(tp)
               if t.is_floating_point()]

@@ -1,7 +1,8 @@
 from .gen_grad import (GenTrace, gen_trace_bwd_cuda, gen_trace_bwd_plain)
 from .gen_trace import (gen_eligible, gen_trace_conic, gen_trace_cuda,
                         gen_trace_plain, model_flags, pack_asphere_coeffs,
-                        pack_surface_constants, supports_model)
+                        pack_surface_constants, supports_model,
+                        supports_split_xy)
 from .huygens import (fresnel_sum_cuda, fresnel_sum_plain,
                       huygens_fresnel_plain, huygens_fresnel_ref, huygens_sum,
                       huygens_sum_cuda, huygens_sum_plain, rereference)
@@ -15,4 +16,5 @@ __all__ = ["GenTrace", "fresnel_sum_cuda", "fresnel_sum_plain",
            "huygens_fresnel_plain", "huygens_fresnel_ref", "huygens_sum",
            "huygens_sum_cuda", "huygens_sum_plain", "model_flags",
            "pack_asphere_coeffs", "pack_surface_constants", "rereference",
-           "supports_model", "trace_cuda", "trace_plain"]
+           "supports_model", "supports_split_xy", "trace_cuda",
+           "trace_plain"]

@@ -803,6 +803,48 @@ __device__ __forceinline__ float apod_weight(const float* g, float Px,
     return __int_as_float(0x7fc00000);         // no such profile
 }
 
+// Adjoint of apod_weight (K2's, gen_grad.cu and gen_grad_xy.cu): adds to
+// (dpx, dpy) the pupil cotangents for the cotangent dw of the launch
+// intensity, where the weight's support passes it (the taken branch of
+// each where). The r-based profiles differentiate r = sqrt(Px^2 + Py^2) as
+// autograd and the JAX profiles do, dr / (2 r): at the pupil centre 0 x
+// inf, a NaN pupil cotangent, as in the JAX package's K2.
+__device__ __forceinline__ void apod_adjoint(const float* g, float Px,
+                                             float Py, float dw, float& dpx,
+                                             float& dpy) {
+    const int code = (int)g[11];
+    if (code <= APOD_UNIFORM) return;
+    const float s2 = add(mul(Px, Px), mul(Py, Py));
+    float ds2;
+    if (code == APOD_GAUSSIAN) {
+        ds2 = -(dw * expf(dvd(-s2, g[12]))) / g[12];
+    } else {
+        const float r = sqt(s2);
+        float dr = 0.0f;
+        if (code == APOD_COSSQ && r < g[13]) {
+            const float arg = dvd(mul(PI_F, r), g[12]);
+            dr = -2.0f * cosf(arg) * dw * sinf(arg) * PI_F / g[12];
+        } else if (code == APOD_HANN && r < g[13]) {
+            const float arg = dvd(mul(TWO_PI_F, r), g[12]);
+            dr = 0.5f * dw * sinf(arg) * TWO_PI_F / g[12];
+        } else if (code == APOD_TUKEY && r <= g[14] && !(r <= g[12])) {
+            const float arg = dvd(mul(PI_F, sub(r, g[12])), g[13]);
+            dr = -0.5f * dw * sinf(arg) * PI_F / g[13];
+        } else if (code == APOD_SUPERGAUSS) {
+            const float q = dvd(r, g[12]);
+            const float w = expf(-powf(q, g[13]));
+            dr = -w * dw * g[13] * powf(q, g[13] - 1.0f) / g[12];
+        } else if (code == APOD_POLY && r < g[12]) {
+            const float q = dvd(r, g[12]);
+            const float b = sub(1.0f, mul(q, q));
+            dr = -2.0f * q * dw * g[13] * powf(b, g[13] - 1.0f) / g[12];
+        }
+        ds2 = dr * (0.5f / r);
+    }
+    dpx += ds2 * 2.0f * Px;
+    dpy += ds2 * 2.0f * Py;
+}
+
 // ---- the polarization chain (sub-slice (e)) ---------------------------------
 // A polarized launch carries n_ev (1 or 2) real E-vectors per ray
 // (pallas_trace.py::_polar_layout :1922, _polar_init :796-828): a linear

@@ -1,7 +1,7 @@
 """K1 in the port: fused ray generation + surface stack + image propagation
 (counterpart of ``optiland_pr_tpu/kernels/pallas_trace.py::_pallas_gen_trace_2d``
 and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
-(d), (e), (f) and (g):
+(d), (e), (f), (g) and (h):
 - (a) conic and plane surfaces that refract or reflect, with absorption in
   the pre-material;
 - (b) tilted and decentered surfaces (localize before the intersection,
@@ -45,7 +45,15 @@ and its entry point ``pallas_gen_trace_conic``), sub-slices (a), (b), (c),
   untilted conic/plane stacks (``supports_split_opd``): z is carried local
   to the previous vertex, only the sag-scale deviation of each surface's
   path from its axial gap enters the per-ray (compensated) sum, and the
-  axial base, identical for every ray, is returned beside the rays.
+  axial base, identical for every ray, is returned beside the rays;
+- (h), the coord_split mode ("xy", ``supports_split_xy``: the split mode's
+  surfaces, unpolarized, simple or no coatings): the whole ray state in
+  float64 (the JAX kernel's two-float arithmetic is a TPU workaround) with
+  the split mode's local z, the curvature the sum of columns 0 and 28, the
+  OPD output each ray's deviation from the chief ray's (the pupil-centre
+  ray of each wavelength and field), whose own OPD is returned beside the
+  rays; in its own libraries, ``csrc/gen_trace_xy.cu`` and
+  ``csrc/gen_grad_xy.cu``.
 
 The module holds
 - the host plumbing: ``supports_model``, ``gen_eligible``, ``model_flags``,
@@ -94,7 +102,8 @@ from ..geometry.forbes import (abc_q2d, clenshaw_q2d, clenshaw_q2d_der,
                                qbfs_basis_matrix, qbfs_sum)
 from ..system.model import OpticModel, positions_from_params
 
-__all__ = ["supports_model", "supports_split_opd", "gen_eligible",
+__all__ = ["supports_model", "supports_split_opd", "supports_split_xy",
+           "gen_eligible", "xy_takes", "gen_trace_xy_cuda",
            "model_flags", "NEWTON_ITERS", "OPD_MODES", "GRAD_LIBS",
            "GRAD_POL_LIBS", "grad_lib", "has_doe",
            "ZERNIKE_BASES", "VARIANTS", "SurfaceFlags", "zernike_table",
@@ -121,8 +130,9 @@ _EPS = 1e-14
 _PI_F = float(np.float32(math.pi))
 _TWO_PI_F = float(np.float32(2 * math.pi))
 # the kernels' OPD modes (csrc/gen_trace_common.cuh: OPD_PLAIN, OPD_KAHAN,
-# OPD_SPLIT), by their integer codes
-OPD_MODES = ("plain", "kahan", "split")
+# OPD_SPLIT; "xy", the coord_split mode of sub-slice (h), is a library of
+# its own, csrc/gen_trace_xy.cu), by their integer codes
+OPD_MODES = ("plain", "kahan", "split", "xy")
 
 # the flag word of a surface (csrc/gen_trace_common.cuh): bits 0-5 the
 # booleans, bits 6-9 the sag kind, bits 10-15 nu (the terms of a sag, the
@@ -265,6 +275,15 @@ def supports_split_opd(model: OpticModel) -> bool:
         spec.geometry.kind in ("standard", "plane")
         and spec.interaction == "refract_reflect"
         and not spec.has_tilt_decenter for spec in model.surfaces[1:])
+
+
+def supports_split_xy(model: OpticModel) -> bool:
+    """True when the coord_split mode of sub-slice (h) applies
+    (``pallas_trace.py:159-172``): the split-OPD scope, an unpolarized
+    launch, and every coating simple or absent."""
+    return supports_split_opd(model) and model.polarization == "ignore" \
+        and all(spec.coating is None or spec.coating.kind == "simple"
+                for spec in model.surfaces[1:])
 
 
 def gen_eligible(model: OpticModel) -> bool:
@@ -1521,6 +1540,171 @@ def split_takes(flags) -> bool:
                for f in (SurfaceFlags(*f) for f in flags))
 
 
+def xy_takes(flags) -> bool:
+    """Whether the coord_split mode of sub-slice (h) takes these
+    ``SurfaceFlags``: the split mode's surfaces, with no Fresnel coating."""
+    return split_takes(flags) and all(SurfaceFlags(*f).coat != "fresnel"
+                                      for f in flags)
+
+
+def _eps_guard64(v):
+    """|v| > eps ? v : (v >= 0 ? eps : -eps), the cotangent to the taken
+    branch (``pallas_trace.py:1154-1157``)."""
+    eps = torch.full_like(v, _EPS)
+    return torch.where(torch.abs(v) > _EPS, v, torch.where(v >= 0, eps, -eps))
+
+
+def _round32(v):
+    """``v`` rounded to float32 (its value in ``v``'s dtype), differentiated
+    as the identity in that dtype: a float32 scalar of the kernels, whose
+    cotangent they carry in float64. The rounding is the float32 operation's
+    when ``v`` is one float64 operation on float32 values (the quotient's,
+    exact products' and sums' rounding twice gives the same bits)."""
+    return v + (v.float().to(v.dtype) - v).detach()
+
+
+def _xy_surface(flag, c, state):
+    """One surface of the coord_split mode (``pallas_trace.py::
+    _surface_step_xy`` and ``_df32_chain``, :1153-1309) in float64, in the
+    operation order of ``csrc/gen_trace_xy.cuh::xy_step``: ``c(j)`` is the
+    surface's float32 constant column j, ``state`` (x, y, z, L, M, N, opd,
+    valid, intensity) with the first seven float64, z local to the previous
+    vertex, and the intensity float32. The scalars the JAX chain keeps in
+    float32 stay there (``_round32``): u = n1 / n2, -(u u) and -(1 +
+    conic). Absorption,
+    the aperture and the coating act in float32 on the rounded t and
+    position, as the JAX step does."""
+    is_plane, is_refl, absorbing = flag.is_plane, flag.is_refl, flag.absorbing
+    x, y, z, L, M, N, opd, valid, inten = state
+    d = torch.float64
+    conic, n1, n2 = c(1).to(d), c(3).to(d), c(4).to(d)
+    ci = c(0).to(d) + c(28).to(d)       # the two-float curvature's sum
+    z = z - c(27).to(d)
+    if is_plane:
+        t = -z / N
+    else:
+        t0 = -z / N
+        x0 = x + t0 * L
+        y0 = y + t0 * M
+        a = (N * N * conic + 1.0) * ci
+        bh = (L * x0 + M * y0) * ci - N
+        cc = (x0 * x0 + y0 * y0) * ci
+        disc = bh * bh - a * cc
+        ok = disc >= 0
+        sq = torch.sqrt(torch.where(ok, disc, 1.0))
+        q = -(bh + torch.where(bh >= 0, sq, -sq))
+        qs = _eps_guard64(q)
+        t_near = cc / qs
+        t_far = qs / _eps_guard64(a)
+        tq = torch.where(torch.abs(t_near) <= torch.abs(t_far), t_near, t_far)
+        t = t0 + torch.where(ok, tq, 0.0)
+        valid = valid & ok
+    x = x + t * L
+    y = y + t * M
+    z = z + t * N
+    opd = opd + t * n1
+
+    if is_plane and is_refl:
+        N = -N
+    elif is_plane or not is_refl:
+        u = _round32(n1 / n2)
+        nuu = _round32(-(u * u))
+    if is_plane and not is_refl:
+        disc_r = 1.0 + (1.0 - N * N) * nuu
+        ok_r = disc_r >= 0
+        root = torch.sqrt(torch.where(ok_r, disc_r, 1.0))
+        valid = valid & ok_r
+        L, M, N = L * u, M * u, root * torch.where(N >= 0, 1.0, -1.0)
+    elif not is_plane:
+        r2 = x * x + y * y
+        arg = 1.0 + (r2 * (ci * ci)) * _round32(-(1.0 + conic))
+        ir = torch.reciprocal(torch.sqrt(torch.where(arg > _EPS, arg, 1.0)))
+        dfdx = (x * ir) * ci
+        dfdy = (y * ir) * ci
+        im = torch.reciprocal(torch.sqrt(dfdx * dfdx + dfdy * dfdy + 1.0))
+        nx, ny, nz = dfdx * im, dfdy * im, -im
+        dot = L * nx + M * ny + N * nz
+        if is_refl:
+            td = dot * 2.0
+            L, M, N = L - td * nx, M - td * ny, N - td * nz
+        else:
+            disc_r = 1.0 + (1.0 - dot * dot) * nuu
+            ok_r = disc_r >= 0
+            root = torch.sqrt(torch.where(ok_r, disc_r, 1.0))
+            valid = valid & ok_r
+            w = root * torch.where(dot >= 0, 1.0, -1.0) + dot * (-u)
+            L, M, N = L * u + nx * w, M * u + ny * w, N * u + nz * w
+
+    if absorbing:
+        inten = inten * torch.exp(-c(5) * t.float() * 1e3)
+    if flag.has_ap:
+        xa, ya = x.float() - c(22), y.float() - c(23)
+        r2a = xa * xa + ya * ya
+        inten = inten * ((r2a >= c(20)) & (r2a <= c(21))).to(inten.dtype)
+    if flag.coat == "simple":
+        inten = inten * c(6)
+    return x, y, z, L, M, N, opd, valid, inten
+
+
+def _gen_trace_plain_xy(gen, consts, Px, Py, flags, final_prop: bool):
+    """The coord_split mode of ``gen_trace_plain``: (out [8, W, F, n],
+    base [W, F]). The chief ray, traced once per (wavelength, field), is
+    the pupil-centre sample appended as sample n, so that its OPD is the
+    one any exact pupil-centre ray gets and its cotangent flows back
+    through its own chain."""
+    W, F, n = consts.shape[0], gen.shape[0], Px.shape[0]
+    d = torch.float64
+
+    def g(j):                               # per-field constant, [1, F, 1]
+        return gen[:, j].reshape(1, F, 1)
+
+    zero = torch.zeros(1, dtype=Px.dtype, device=Px.device)
+    px = torch.cat([Px, zero]).reshape(1, 1, n + 1).to(d)
+    py = torch.cat([Py, zero]).reshape(1, 1, n + 1).to(d)
+    telecentric, code = launch_mode(gen)
+    x = (px * g(0).to(d) + g(2).to(d)).expand(W, F, n + 1)
+    y = (py * g(1).to(d) + g(3).to(d)).expand(W, F, n + 1)
+    if telecentric:
+        dxr = (px * g(8).to(d)).expand(W, F, n + 1)
+        dyr = (py * g(9).to(d)).expand(W, F, n + 1)
+        dzr = g(5).to(d).expand(W, F, n + 1)
+    else:
+        dxr = px * g(8).to(d) - x
+        dyr = py * g(9).to(d) - y
+        # the aim's axial distance, taken in float32 as the JAX launch
+        # takes it (pallas_trace.py:1993-1994)
+        dzr = (g(5) - g(4)).to(d).expand(W, F, n + 1)
+    im = torch.reciprocal(torch.sqrt(dxr * dxr + dyr * dyr + dzr * dzr))
+    L, M, N = dxr * im, dyr * im, dzr * im
+    weight = apod_weight(code, lambda j: g(12 + j).detach(),
+                         Px.reshape(1, 1, n), Py.reshape(1, 1, n))
+    inten = torch.ones((W, F, n), dtype=Px.dtype, device=Px.device) \
+        if weight is None else weight.expand(W, F, n)
+    inten = torch.cat([inten, torch.ones_like(inten[..., :1])], dim=-1)
+    z = torch.zeros_like(x)
+    opd = torch.zeros_like(x)
+    valid = torch.ones_like(x, dtype=torch.bool)
+    state = (x, y, z, L, M, N, opd, valid, inten)
+    for k, flag in enumerate(flags):
+        def c(j, k=k):                  # per-wavelength constant, [W, 1, 1]
+            return consts[:, k, j].reshape(W, 1, 1)
+        state = _xy_surface(SurfaceFlags(*flag), c, state)
+    x, y, z, L, M, N, opd, valid, inten = state
+    if final_prop:
+        t_img = g(6).to(d)
+        x = x + L * t_img
+        y = y + M * t_img
+        z = z + N * t_img
+    dev = opd[..., :n] - opd[..., n:]
+    valid = valid[..., :n]
+
+    def m(v):
+        return torch.where(valid, v[..., :n].float(), torch.nan)
+    out = torch.stack([m(x), m(y), m(z), m(L), m(M), m(N), inten[..., :n],
+                       m(dev)])
+    return out, opd[..., n].float()
+
+
 def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
                     opd_mode: str = "plain", polar=None):
     """Plain PyTorch K1 on the packed tables: every elementwise operation of
@@ -1532,13 +1716,25 @@ def gen_trace_plain(gen, consts, acoef, Px, Py, flags, final_prop: bool,
     In the "split" mode z is local to the last vertex (also in the output),
     column 27 holds each surface's vertex gap (surface 1's from the launch
     plane), and the OPD output is the deviation from the axial base.
-    ``polar``: a ``PolarLaunch`` (sub-slice (e)), or None unpolarized."""
+    ``polar``: a ``PolarLaunch`` (sub-slice (e)), or None unpolarized.
+
+    The "xy" mode (sub-slice (h), coord_split) carries the ray state in
+    float64 (``_xy_surface``), with the split mode's local z and column 27,
+    and column 28 the low word of the curvature; it returns (out, base):
+    the OPD output is the deviation from the chief ray's (the pupil-centre
+    ray of each wavelength and field), base [W, F] the chief's own OPD."""
     W, S = consts.shape[0], consts.shape[1]
     F, n = gen.shape[0], Px.shape[0]
     if len(flags) != S:
         raise ValueError(f"{len(flags)} flags for {S} surfaces")
     if opd_mode not in OPD_MODES:
         raise ValueError(f"unknown OPD mode {opd_mode!r}")
+    if opd_mode == "xy":
+        if not xy_takes(flags) or polar is not None:
+            raise ValueError("the coord_split mode takes unpolarized "
+                             "untilted conic/plane surfaces that refract or "
+                             "reflect, without a Fresnel coating, only")
+        return _gen_trace_plain_xy(gen, consts, Px, Py, flags, final_prop)
     split = opd_mode == "split"
     if split and not split_takes(flags):
         raise ValueError("the split-OPD mode takes untilted conic/plane "
@@ -1653,6 +1849,16 @@ GRAD_POL_LIBS = {"plain": "gen_grad_pol", "kahan": "gen_grad_pol_kahan",
 GRAD_DOE_LIBS = {"plain": "gen_grad_doe", "kahan": "gen_grad_doe_kahan"}
 GRAD_POL_DOE_LIBS = {"plain": "gen_grad_pol_doe",
                      "kahan": "gen_grad_pol_doe_kahan"}
+# sub-slice (h), the coord_split mode: K1 and K2 in float64, libraries of
+# their own (csrc/gen_trace_xy.cu, csrc/gen_grad_xy.cu)
+_SIGNATURES["gen_trace_xy"] = [
+    ("gen_trace_xy_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)]
+_SIGNATURES["gen_grad_xy"] = [
+    ("gen_grad_xy_partials_size", [ctypes.c_int] * 3 + [ctypes.c_longlong],
+     ctypes.c_longlong),
+    ("gen_grad_xy_launch", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)]
 for _lib in (list(GRAD_LIBS.values()) + list(GRAD_POL_LIBS.values())
              + list(GRAD_DOE_LIBS.values())
              + list(GRAD_POL_DOE_LIBS.values())):
@@ -1738,13 +1944,18 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
     float32 CUDA tensors on one device (``more`` names further ones), gen
     [F, 16], consts [W, S, 32], acoef [S, C] with C at least every surface's
     asphere terms, Px/Py [n], one ``SurfaceFlags`` per surface, an OPD mode of
-    ``OPD_MODES`` (the split mode for untilted conic/plane surfaces only).
-    Returns (W, S, F, n, C), the flag words and the mode's code."""
+    ``OPD_MODES`` (the split mode for untilted conic/plane surfaces only,
+    the "xy" mode for those without a Fresnel coating). Returns (W, S, F,
+    n, C), the flag words and the mode's code."""
     if opd_mode not in OPD_MODES:
         raise ValueError(f"unknown OPD mode {opd_mode!r}")
     if opd_mode == "split" and not split_takes(flags):
         raise ValueError("the split-OPD mode takes untilted conic/plane "
                          "surfaces that refract or reflect only")
+    if opd_mode == "xy" and not xy_takes(flags):
+        raise ValueError("the coord_split mode takes untilted conic/plane "
+                         "surfaces that refract or reflect, without a "
+                         "Fresnel coating, only")
     dev = Px.device
     for name, t in (("gen", gen), ("consts", consts), ("acoef", acoef),
                     ("Px", Px), ("Py", Py), *more.items()):
@@ -1775,9 +1986,15 @@ def check_tables(gen, consts, acoef, Px, Py, flags, opd_mode="plain",
 def gen_trace_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool,
                    opd_mode: str = "plain", polar=None):
     """Launch the CUDA K1 on the current stream; returns [8, W, F, n]
-    float32. ``polar``: a ``PolarLaunch``, which the polarized library
+    float32 (in the "xy" mode, ``gen_trace_xy_cuda``'s (out, base)).
+    ``polar``: a ``PolarLaunch``, which the polarized library
     (``csrc/gen_trace_pol.cu``) takes. Raises on anything the kernel does
     not take."""
+    if opd_mode == "xy":
+        if polar is not None:
+            raise ValueError("the coord_split mode takes no polarized launch")
+        return gen_trace_xy_cuda(gen, consts, acoef, Px, Py, flags,
+                                 final_prop)
     (W, S, F, n, C), words, mode = check_tables(gen, consts, acoef, Px, Py,
                                                 flags, opd_mode)
     dev = Px.device
@@ -1815,10 +2032,43 @@ gen_trace_cuda.launches_polarized = 0
 gen_trace_cuda.launches_doe = 0
 
 
+def gen_trace_xy_cuda(gen, consts, acoef, Px, Py, flags, final_prop: bool):
+    """K1 in the coord_split mode of sub-slice (h) (``csrc/gen_trace_xy.cu``,
+    float64 ray state): (out [8, W, F, n] float32, base [W, F] float32, the
+    chief ray's OPD); ``acoef`` is checked and not read (the mode has no
+    sag coefficients). One call is one launch of K1 (h), counted on
+    ``gen_trace_cuda``: the C entry runs the chief kernel, then the ray
+    kernel, on the current stream."""
+    (W, S, F, n, _), words, _ = check_tables(gen, consts, acoef, Px, Py,
+                                             flags, "xy")
+    if n < 1:
+        raise ValueError("the coord_split mode needs at least one ray")
+    dev = Px.device
+    out = torch.empty((8, W, F, n), dtype=torch.float32, device=dev)
+    base = torch.empty((W, F), dtype=torch.float32, device=dev)
+    chief = torch.empty((W, F), dtype=torch.float64, device=dev)
+    lib = build_kernel("gen_trace_xy")
+    words = (ctypes.c_int32 * S)(*words)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.gen_trace_xy_launch(
+            gen.data_ptr(), consts.data_ptr(), Px.data_ptr(), Py.data_ptr(),
+            out.data_ptr(), base.data_ptr(), chief.data_ptr(),
+            ctypes.addressof(words), S, F, W, n, int(bool(final_prop)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"gen_trace_xy kernel launch failed: CUDA error "
+                           f"{err}")
+    gen_trace_cuda.launches += 1
+    gen_trace_cuda.launches_by_mode["xy"] += 1
+    return out, base
+
+
 def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
                     Hx=0.0, Hy=0.0, final_prop: bool = False,
                     kahan: bool = False, opd_split: bool = False,
-                    keep_local_z: bool = False, apodization=None):
+                    keep_local_z: bool = False, apodization=None,
+                    coord_split: bool = False):
     """Fused generation + trace of the pupil samples (Px, Py) for the
     wavelength(s) and field point(s) given; the counterpart of
     ``pallas_gen_trace_conic``.
@@ -1845,11 +2095,22 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     chain's, with the apodization's weight (the JAX kernel's; the eager
     trace of a polarized state leaves the weight out).
 
+    ``coord_split`` (requires ``supports_split_xy``; sub-slice (h)): the
+    whole ray state in float64 against a chief ray per wavelength and field
+    (K1 (h)); it takes precedence over ``kahan`` and ``opd_split``. The
+    call returns ``(rays, base)`` with ``rays.opd`` the deviation from the
+    chief's OPD and ``base`` the chief's own (a scalar, [F], [W] or [W, F]
+    as the wavelength and field are scalars or vectors), differentiable;
+    z as in the split mode.
+
     A scalar wavelength and scalar field return ``n`` rays; a field vector
     F*n rays (field-major); a wavelength vector W*F*n rays in (wavelength,
     field, pupil) order. Outputs are float32."""
     if not (supports_model(model) and gen_eligible(model)):
         raise ValueError("system/call not eligible for the K1 kernel")
+    if coord_split and not supports_split_xy(model):
+        raise ValueError("coord_split needs an untilted, unpolarized "
+                         "conic/plane stack with simple or no coatings")
     if opd_split and not supports_split_opd(model):
         raise ValueError("opd_split needs an untilted conic/plane stack")
     px = torch.as_tensor(Px, dtype=torch.float32).contiguous()
@@ -1859,9 +2120,10 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     flags = model_flags(model, params)
     gen, consts, acoef = gen_tables(model, params, wavelength, Hx, Hy,
                                     apodization)
-    mode = "split" if opd_split else ("kahan" if kahan else "plain")
+    mode = "xy" if coord_split else (
+        "split" if opd_split else ("kahan" if kahan else "plain"))
     polar = polar_launch(model.polarization)
-    if opd_split:
+    if opd_split or coord_split:
         consts = split_consts(params, gen, consts)
     if any(t.requires_grad for t in (gen, consts, acoef, px, py)):
         from .gen_grad import GenTrace
@@ -1873,16 +2135,26 @@ def gen_trace_conic(model: OpticModel, params, Px, Py, wavelength,
     else:
         out = gen_trace_cuda(gen, consts, acoef, px, py, flags, final_prop,
                              mode, polar)
+    if coord_split:
+        out, base = out
     field_vec = ndim(Hx) == 1 or ndim(Hy) == 1
     scalar_wl = ndim(wavelength) == 0
     rays = rays_from_outputs(out, consts[:, 0, 7], scalar_wl, field_vec)
-    if not opd_split:
+    if not (opd_split or coord_split):
         return rays
     if not keep_local_z:
         z_img = positions_from_params(params)[-1]
         rays = rays.replace(z=rays.z + z_img.to(rays.z.dtype))
-    base = axial_base(consts, flags)
-    return rays, (base[0] if scalar_wl else base)
+    if not coord_split:
+        base = axial_base(consts, flags)
+        return rays, (base[0] if scalar_wl else base)
+    # the JAX entry's squeezing of the chief base (pallas_trace.py:
+    # 2455-2460)
+    if scalar_wl:
+        base = base[0]
+    if not field_vec:
+        base = base[..., 0]
+    return rays, base
 
 
 def split_consts(params, gen, consts):

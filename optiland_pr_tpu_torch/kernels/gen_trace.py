@@ -1832,10 +1832,14 @@ _SIGNATURES["trace"] = [
      + [ctypes.c_longlong, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
      ctypes.c_int)]
 _SIGNATURES["huygens"] = [
+    ("huygens_occupancy", [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2,
+     ctypes.c_int),
     ("huygens_launch", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_void_p,
-                        ctypes.POINTER(ctypes.c_int)], ctypes.c_int)]
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    ("huygens_root_check", [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                            ctypes.c_void_p], ctypes.c_int)]
 # K2: one library per OPD mode (csrc/gen_grad.cu, gen_grad_kahan.cu,
 # gen_grad_split.cu), per launch (the polarized instances in
 # gen_grad_pol.cu, gen_grad_pol_kahan.cu, gen_grad_pol_split.cu) and for

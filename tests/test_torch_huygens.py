@@ -15,9 +15,17 @@ Tolerances:
 - K3's plain version (float32) against ``pallas_trace_conic`` in interpret
   mode: positions rtol 1e-4 and atol 2e-4 mm, directions atol 1e-5, OPD
   atol 2e-3 mm, intensity rtol 1e-6, lost rays NaN at the same rays
-  (tests/test_torch_wavefront.py's K1 tolerances).
+  (tests/test_torch_wavefront.py's K1 tolerances);
+- K4's argument reductions of a float32 phase (``reduce_phase``, the
+  float64 mirror of csrc/huygens.cu): the float64 one within 1e-15 rad,
+  the float32 one within 7e-8 rad, of x - n pi at 200 bits; sin and cos
+  through them (``sincos_phase``) within 1e-7 of numpy's float64 sin and
+  cos of x (r's rounding to float32, 9.4e-8 at |r| <= 1.58, or the float32
+  reduction's error).
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -198,6 +206,86 @@ def test_float32_pupil_samples_go_back_on_the_sphere():
     assert all(v.dtype == F64 for v in p)
     np.testing.assert_allclose(_np(r[ok]), float(d32.radius), rtol=1e-14)
     np.testing.assert_allclose(_np(p[0][ok]), _np(d.pupil_x[ok]), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4 on the card: how it takes sin and cos, and its launch plan
+# ---------------------------------------------------------------------------
+
+def _phases(limit: float, seed: int = 3) -> np.ndarray:
+    """Float32 phases below ``limit``: log-uniform magnitudes from 0.125
+    rad, both signs, and float32 multiples of pi/2 with their neighbours
+    up to three ulp away (where sin or cos passes through 0)."""
+    rng = np.random.default_rng(seed)
+    mag = 2.0 ** rng.uniform(-3.0, np.log2(limit), 40_000)
+    x = (mag * rng.choice([-1.0, 1.0], mag.size)).astype(np.float32)
+    m = rng.integers(1, int(limit / (np.pi / 2)), 2_000)
+    near = [(m * (np.pi / 2)).astype(np.float32)]
+    for _ in range(3):
+        near += [np.nextafter(near[-1], np.float32(np.inf)),
+                 np.nextafter(near[0], np.float32(-np.inf))]
+    x = np.concatenate([x] + near)
+    return x[np.abs(x) < limit]
+
+
+@pytest.mark.parametrize("form", ["sum", "fresnel"])
+def test_kernel_sincos_matches_float64(form):
+    """The kernel's reduction of float32 phases on its fast range (the
+    float64 mirror ``reduce_phase``): sin and cos through it against
+    numpy's float64 sin and cos of the same float32 values, and x - n pi
+    against 200 bits of pi (mpmath) on a few hundred of them."""
+    mpmath = pytest.importorskip("mpmath")
+    x = _phases(th.FAST_LIMIT[form])
+    s, c = th.sincos_phase(torch.from_numpy(x), form)
+    xd = x.astype(np.float64)
+    assert float(np.abs(s.numpy() - np.sin(xd)).max()) <= 1e-7
+    assert float(np.abs(c.numpy() - np.cos(xd)).max()) <= 1e-7
+    pick = np.concatenate([x[:150], x[-150:]])
+    r, odd = th.reduce_phase(torch.from_numpy(pick), form)
+    mpmath.mp.prec = 200
+    for xi, ri, oi in zip(pick, r.numpy(), odd.numpy()):
+        xm = mpmath.mpf(float(xi))
+        n = mpmath.nint(xm / mpmath.pi)
+        assert bool(oi) == (int(n) % 2 == 1)
+        assert abs(float(xm - n * mpmath.pi) - float(ri)) \
+            <= (1e-15 if form == "sum" else 7e-8)
+
+
+def test_kernel_constants_are_the_sources():
+    """The mirror's constants (the reductions and their ranges) and the
+    launch plan's tile are the ones csrc/huygens.cu defines."""
+    src = (Path(th.__file__).parent / "csrc" / "huygens.cu").read_text()
+    val = {m.group(1): float.fromhex(m.group(2).rstrip("f")) for m in
+           re.finditer(r"#define (\w+) (-?0x[0-9a-fp.+-]+f?)\b", src)}
+    val.update({m.group(1): float(m.group(2)) for m in re.finditer(
+        r"#define (\w+_FAST_LIMIT) ([0-9.]+)f", src)})
+    assert th.REDUCE_F64 == tuple(val[k] for k in (
+        "INV_PI_D", "SHIFT_D", "PI1_D", "PI2_D", "PI3_D"))
+    assert th.REDUCE_F32 == tuple(val[k] for k in (
+        "INV_PI_F", "SHIFT_F", "PI1_F", "PI2_F"))
+    assert th.FAST_LIMIT == {"sum": val["SUM_FAST_LIMIT"],
+                             "fresnel": val["FRESNEL_FAST_LIMIT"]}
+    assert np.float32(np.pi) == val["PI1_D"] == val["PI1_F"]
+    assert re.search(r"constexpr int TILE = (\d+);", src).group(1) \
+        == str(th.TILE)
+
+
+@pytest.mark.parametrize("n_pupil,n_image,slots,want", [
+    (51_040, 65_536, 396, (1, 24)),     # 256/256 at 3 blocks per SM
+    (12_644, 16_384, 264, (1, 66)),     # 128/128 at 2 blocks per SM
+    (51_040, 1, 264, (256, 24)),        # the one-point normalization
+    (51_040, 128, 264, (16, 398)),      # 128 points
+    (100, 1, 264, (256, 1)),            # too few pupil points to split
+    (64, 10 ** 6, 264, (1, 1))])        # enough image points alone
+def test_k4_launch_plan(n_pupil, n_image, slots, want):
+    """The launch plan: lanes fill one block only when the image groups
+    cannot, the segments make about two waves of blocks without leaving a
+    lane fewer than 8 pupil points."""
+    lanes, splits = th._plan(n_pupil, n_image, slots)
+    assert (lanes, splits) == want
+    groups = -(-n_image // 8)
+    assert lanes & (lanes - 1) == 0 and groups * lanes <= max(256, groups)
+    assert splits == 1 or n_pupil // (lanes * splits) >= 8
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,11 @@
 // operations plus ~6 IEEE divisions and ~4 IEEE square roots, each a
 // multi-instruction sequence with a quarter-rate MUFU step. Measured on an
 // H100 (700 W): 1.92 ms for that case, 600 GB/s of output, so the kernel is
-// bound by instruction issue, not by memory bandwidth (PERF.md). An asphere
+// bound by instruction issue, not by memory bandwidth (PERF.md). The narrow,
+// plain-OPD, unpolarized instance that case launches is the fused design of
+// gen_trace_narrow.cuh (6 MUFU operations per refracting conic surface;
+// 1.32 ms there, PERF.md), held to a tolerance against the plain version
+// instead of bit for bit. An asphere
 // adds 10 evaluations of its sag (8 Newton steps, the live step, the normal),
 // each ~20 operations and a division plus 6 per term: the aspheric cases are
 // bound by operations too. The OPD modes are templates too: the Kahan sum
@@ -121,6 +125,55 @@ gen_trace_kernel(const float* __restrict__ gen, const float* __restrict__ consts
     out[6 * plane + o] = s.inten;
     out[7 * plane + o] = s.opd;
 }
+
+#if !TRACE_POL
+#include "gen_trace_narrow.cuh"
+
+// The narrow, plain-OPD, unpolarized instance (the Cooke triplet's, the
+// double Gauss's, the UV lens's): the fused design of gen_trace_narrow.cuh,
+// held to a tolerance against the plain version, not bit for bit. The
+// block stages each surface's NarrowRow (its derived constants) and its
+// field's gen row in shared memory.
+template <>
+__global__ void __launch_bounds__(BLOCK)
+gen_trace_kernel<VAR_NARROW, OPD_PLAIN, false>(
+        const float* __restrict__ gen, const float* __restrict__ consts,
+        const float* __restrict__ acoef, const float* __restrict__ ztab,
+        const float* __restrict__ px, const float* __restrict__ py,
+        float* __restrict__ out, const SurfFlags flags, int S, int F, int W,
+        int C, long long n, int final_prop, const PolLaunch pl) {
+    __shared__ NarrowRow rows[MAX_SURF];
+    __shared__ float sg[GEN_W];
+    const int f = blockIdx.y;
+    const int w = blockIdx.z;
+    const float* cw = consts + (size_t)w * S * CONST_W;
+    for (int k = threadIdx.x; k < S; k += blockDim.x)
+        rows[k] = narrow_row(cw + k * CONST_W);
+    if (threadIdx.x < GEN_W) sg[threadIdx.x] = gen[(size_t)f * GEN_W + threadIdx.x];
+    __syncthreads();
+
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+
+    RayState s;
+    narrow_prologue(sg, px[i], py[i], s);
+    for (int k = 0; k < S; ++k) narrow_step(rows[k], flags.f[k], s);
+    narrow_epilogue(sg, final_prop, s);
+    if (!s.valid) {
+        s.x = s.y = s.z = s.L = s.M = s.N = s.opd = __int_as_float(0x7fc00000);
+    }
+    const size_t plane = (size_t)W * F * n;
+    const size_t o = ((size_t)w * F + f) * n + i;
+    out[o] = s.x;
+    out[plane + o] = s.y;
+    out[2 * plane + o] = s.z;
+    out[3 * plane + o] = s.L;
+    out[4 * plane + o] = s.M;
+    out[5 * plane + o] = s.N;
+    out[6 * plane + o] = s.inten;
+    out[7 * plane + o] = s.opd;
+}
+#endif
 
 template <int VAR, int MODE>
 static void launch(dim3 grid, cudaStream_t st, const float* gen,

@@ -81,7 +81,9 @@
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never contracts
 // into an FMA, in the order of the plain PyTorch version. The kernels and the
 // plain version on the card therefore agree bit for bit. Built without
-// --use_fast_math.
+// --use_fast_math. One instance of K1 does not run this code: the narrow,
+// plain-OPD, unpolarized one (gen_trace_narrow.cuh, fused, held to a
+// tolerance); K2 recomputes its forward with this code all the same.
 //
 // Variants: surface_step is a template on the variant and on the OPD mode.
 // VAR_NARROW compiles only sub-slice (a), the code that ran before (b) and

@@ -11,7 +11,10 @@ short launch's CUDA-event time carries) and the second pass's part of it
 triplet at (0, 1), 256/256, end to end on the host clock (synced), K3 on
 the DOE spectrometer's rays (1 x 4M), K1 on the Hubble telescope 1 x 2 x
 4M in the plain and Kahan modes (WIDE) and on the zoned concentrator 1 x
-3 x 4M (FREEFORM). Each checkout builds its own libraries. The runs read
+3 x 4M (FREEFORM), and K1's narrow, plain-OPD instance on the Cooke
+triplet and the double Gauss 3 x 3 x 4M, the UV lens 1 x 3 x 4M and Adam
+(ii)'s Cooke shape, 1 field x 3 wavelengths x 4M (with the card's busy
+time of one call, "_device"). Each checkout builds its own libraries. The runs read
 a kernel alone, not after chip_smoke.py's other phases: two checkouts
 whose instances are SASS-identical should read alike here.
 
@@ -36,7 +39,8 @@ from optiland_pr_tpu_torch.core.distributions import generate_distribution
 from optiland_pr_tpu_torch.kernels import gen_trace as k1
 from optiland_pr_tpu_torch.kernels import huygens as k4
 from optiland_pr_tpu_torch.kernels import trace_conic as k3
-from optiland_pr_tpu_torch.samples import HubbleTelescope
+from optiland_pr_tpu_torch.samples import (CookeTriplet, DoubleGauss,
+                                           HubbleTelescope, UVProjectionLens)
 from optiland_pr_tpu_torch.system.model import field_coords
 from optiland_pr_tpu_torch.trace.raygen import generate_rays
 
@@ -90,6 +94,25 @@ for name, lens, mode in (("k1_hubble_1x2x4M", HubbleTelescope(), "plain"),
     g, c, a, fl = tables(lens)
     out[name] = cs.cuda_ms(lambda: k1.gen_trace_cuda(g, c, a, px, py, fl,
                                                      True, mode))
+# K1's narrow, plain-OPD instance at the main paths' shapes: (fields,
+# every wavelength or the primary one)
+for name, build, fields, all_wl in (
+        ("k1_cooke_3x3x4M", CookeTriplet, [0.0, 0.7, 1.0], True),
+        ("k1_double_gauss_3x3x4M", DoubleGauss, [0.0, 0.7, 1.0], True),
+        ("k1_uv_lens_1x3x4M", UVProjectionLens, [0.0, 0.5, 1.0], False),
+        ("k1_cooke_1x3x4M", CookeTriplet, [0.7], True)):
+    if not wanted(name):
+        continue
+    m, p = build().build(device=dev, dtype=torch.float32)
+    wl = p["wavelengths"] if all_wl else \
+        p["wavelengths"][m.primary_wavelength_idx]
+    hy = torch.tensor(fields, dtype=torch.float32, device=dev)
+    g, c, a = k1.gen_tables(m, p, wl, torch.zeros_like(hy), hy)
+    fl = k1.model_flags(m, p)
+    out[name] = cs.cuda_ms(lambda: k1.gen_trace_cuda(g, c, a, px, py, fl,
+                                                     True))
+    out[name + "_device"] = device_ms(
+        lambda: k1.gen_trace_cuda(g, c, a, px, py, fl, True))[0]
 if wanted("k3_doe_grating_1x4M"):
     m, p = cs.doe_spectrometer().build(device=dev, dtype=torch.float32)
     wl = p["wavelengths"][m.primary_wavelength_idx]

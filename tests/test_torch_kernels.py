@@ -284,3 +284,109 @@ def test_chip_smoke_comparison(fault):
     else:
         with pytest.raises(RuntimeError, match="check failed"):
             compare(bad, out, px, py, fault)
+
+
+def test_chip_smoke_k1_floor():
+    """``k1_float32_floor`` (K1's narrow contract) on the TIR singlet's
+    plain outputs at 256 rays: at least the float32 plain version's own
+    distance from float64 on every element of a valid ray, above it
+    somewhere (the runs at the one-ulp neighbours of the pupil samples),
+    finite, and 0 on the lost rays."""
+    from chip_smoke import k1_float32_floor
+    model, params = tobj.TIRSinglet().build(device="cpu", dtype=F32)
+    hy = torch.tensor([0.0, 1.0])
+    gen, consts, acoef = tgt.gen_tables(model, params, params["wavelengths"],
+                                        torch.zeros_like(hy), hy)
+    px, py = (torch.tensor(a) for a in _pupil(256))
+    flags = tgt.model_flags(model, params)
+    out = tgt.gen_trace_plain(gen, consts, acoef, px, py, flags, True)
+    out64 = tgt.gen_trace_plain(*(t.double() for t in (gen, consts, acoef,
+                                                        px, py)), flags, True)
+    floor = k1_float32_floor(tgt, gen, consts, acoef, px, py, flags, out,
+                             out64)
+    assert floor.shape == out.shape and floor.dtype == F32
+    assert bool(torch.isfinite(floor).all())
+    lost = torch.isnan(out[0])
+    own = (out.double() - out64).abs().float()
+    keep = [0, 1, 2, 3, 4, 5, 7]
+    assert bool((floor[keep][:, ~lost] >= own[keep][:, ~lost]).all())
+    assert bool((floor[keep][:, ~lost] > own[keep][:, ~lost]).any())
+    assert bool((floor[keep][:, lost] == 0).all())
+
+
+@pytest.mark.parametrize("inside", [True, False])
+def test_chip_smoke_comparison_floor(inside):
+    """``compare``'s per-element float32 floor (K1's narrow contract): a
+    position fault beyond the bare tolerance passes within twice the
+    element's floor and is caught just outside it."""
+    from chip_smoke import compare
+    model, params = tobj.TIRSinglet().build(device="cpu", dtype=F32)
+    hy = torch.tensor([0.0, 1.0])
+    gen, consts, acoef = tgt.gen_tables(model, params, params["wavelengths"],
+                                        torch.zeros_like(hy), hy)
+    px, py = (torch.tensor(a) for a in _pupil(256))
+    out = tgt.gen_trace_plain(gen, consts, acoef, px, py,
+                              tgt.model_flags(model, params), True)
+    lost = torch.isnan(out[0])
+    i = int(torch.nonzero(~lost.reshape(-1))[0])
+    floor = torch.zeros_like(out)
+    floor.reshape(8, -1)[0, i] = 1e-3
+    bad = out.clone()
+    bound = 2e-4 + 2e-4 * float(out.reshape(8, -1)[0, i].abs())
+    bad.reshape(8, -1)[0, i] += bound + (2e-3 - 1e-5 if inside else 2e-3
+                                         + 1e-5)
+    if inside:
+        compare(bad, out, px, py, "floor", floor=floor)
+    else:
+        with pytest.raises(RuntimeError, match="float32 floor"):
+            compare(bad, out, px, py, "floor", floor=floor)
+    with pytest.raises(RuntimeError, match="check failed"):
+        compare(bad, out, px, py, "no floor")
+
+
+@pytest.mark.parametrize("fault", [None, "x", "y", "z", "L", "M", "N",
+                                   "opd"])
+def test_chip_smoke_float64_check(fault):
+    """Contract (ii) of K1's narrow instance in chip_smoke.py
+    (``float64_distance``), on the TIR singlet's plain outputs in float32
+    and float64 at 256 rays: outputs equal to the float32 plain version's
+    pass, and a fault of one ray's output just outside twice the float32
+    plain version's largest distance from float64 is caught."""
+    from chip_smoke import K1_OUTPUTS, float64_distance
+    model, params = tobj.TIRSinglet().build(device="cpu", dtype=F32)
+    hy = torch.tensor([0.0, 1.0])
+    gen, consts, acoef = tgt.gen_tables(model, params, params["wavelengths"],
+                                        torch.zeros_like(hy), hy)
+    px, py = (torch.tensor(a) for a in _pupil(256))
+    flags = tgt.model_flags(model, params)
+    out = tgt.gen_trace_plain(gen, consts, acoef, px, py, flags, True)
+    out64 = tgt.gen_trace_plain(*(t.double() for t in (gen, consts, acoef,
+                                                        px, py)), flags, True)
+    lost = torch.isnan(out[0])
+    assert lost.any() and not lost.all()
+    if fault is None:
+        dist = float64_distance(out.clone(), out, out64, "same")
+        assert set(dist) == set(K1_OUTPUTS) - {"intensity"}
+        assert all(a == b == c for a, b, c in dist.values())
+        assert dist["x"][1] > 0.0
+        return
+    j = K1_OUTPUTS.index(fault)
+    ok = ~(lost | torch.isnan(out64[0]))
+    dp = float((out[j].double() - out64[j])[ok].abs().max())
+    bad = out.clone()
+    i = int(torch.nonzero(ok.reshape(-1))[0])
+    # the first float32 farther from float64 than twice the float32 plain
+    # version's largest distance
+    v64 = out64.reshape(8, -1)[j, i]
+    v = (v64 + 2 * dp).float()
+    while float(v.double() - v64) <= 2 * dp:
+        v = torch.nextafter(v, torch.tensor(math.inf))
+    bad.reshape(8, -1)[j, i] = v
+    with pytest.raises(RuntimeError, match="more than twice"):
+        float64_distance(bad, out, out64, fault)
+    # a float32 floor (k1_float32_floor) above half the fault's distance
+    # on any ray admits it
+    floor = torch.zeros_like(out)
+    floor.reshape(8, -1)[j, i] = float(v.double() - v64) / 2 * (1 + 1e-6)
+    dist = float64_distance(bad, out, out64, fault, floor)
+    assert dist[fault][2] > dist[fault][1]

@@ -87,6 +87,13 @@
 //   dPx, dPy [n]       summed over W and F (optional)
 //
 // Design.
+//   0. The narrow, plain-OPD, unpolarized instances (one per stack-depth
+//      bucket, in this library only) are gen_grad_narrow.cuh's explicit
+//      specializations: K1 narrow's fused step (gen_trace_narrow.cuh) run
+//      for the lost-ray mask alone, the shared forward for the states and
+//      the tape, an adjoint with fast divisions and derived-constant
+//      cotangents, one butterfly reduction per surface. What follows
+//      describes every other instance.
 //   1. gen_grad_kernel, grid (ceil(n/256), F, W) as in K1. Each thread runs
 //      the shared forward (gen_trace_common.cuh), so its lost-ray mask is
 //      K1's bit for bit, and keeps the boundary state of every surface
@@ -141,11 +148,18 @@
 // adjoint of the live Newton step and of the normal each re-evaluate the
 // sag and its derivatives). Measured on an H100 (700 W): 1.03 ms for the
 // Cooke triplet at 4M rays, ~5x K1's time per ray and ~9x the operation
-// bound, so it is bound by instruction issue, as K1 is (PERF.md).
+// bound, so it is bound by instruction issue, as K1 is (PERF.md); the
+// narrow instance's redesign (gen_grad_narrow.cuh) is measured there too.
 #include "gen_trace_common.cuh"
 
 #ifndef GRAD_MODE
 #define GRAD_MODE OPD_PLAIN
+// this file built as it stands: the plain mode's library, whose narrow
+// instances are gen_grad_narrow.cuh's (every other library defines
+// GRAD_MODE, and GRAD_POL, WITH_DOE or another mode, before including it)
+#define NARROW_FUSED 1
+#else
+#define NARROW_FUSED 0
 #endif
 // 1: this library holds the polarized instances (sub-slice (e))
 #ifndef GRAD_POL
@@ -2164,6 +2178,15 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
     }
 }
 
+// The narrow, plain-OPD, unpolarized instances (the Cooke triplet's, the
+// double Gauss's, the UV lens's): the fused design of gen_grad_narrow.cuh,
+// whose forward is K1 narrow's (gen_trace_narrow.cuh). A library with the
+// diffractive surfaces, a polarized one or another OPD mode's keeps the
+// template above for every instance.
+#if NARROW_FUSED
+#include "gen_grad_narrow.cuh"
+#endif
+
 // gen columns 0-15 -> slot after the surfaces' (-1: no cotangent)
 __device__ __forceinline__ int gen_slot(int col) {
     return col <= 6 ? col : (col == 8 ? 7 : (col == 9 ? 8 : -1));
@@ -2276,7 +2299,10 @@ static int launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
                          const GradLayout& g, int S, int F, int W, int C,
                          long long n, int nblk, int final_prop,
                          const PolLaunch& pl) {
-    const size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
+    size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
+#if NARROW_FUSED
+    if constexpr (VAR == VAR_NARROW) shmem = narrow_shmem(S);
+#endif
     if (shmem > 48 * 1024) {
         const int err = (int)cudaFuncSetAttribute(
             gen_grad_kernel<MAXS, VAR, GRAD_MODE, (bool)GRAD_POL>,

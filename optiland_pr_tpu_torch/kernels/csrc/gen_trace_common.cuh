@@ -83,7 +83,9 @@
 // plain version on the card therefore agree bit for bit. Built without
 // --use_fast_math. One instance of K1 does not run this code: the narrow,
 // plain-OPD, unpolarized one (gen_trace_narrow.cuh, fused, held to a
-// tolerance); K2 recomputes its forward with this code all the same.
+// tolerance); K2 recomputes its forward with this code all the same, and
+// its instance of the same kind takes the lost-ray mask from K1 narrow's
+// step (gen_grad_narrow.cuh).
 //
 // Variants: surface_step is a template on the variant and on the OPD mode.
 // VAR_NARROW compiles only sub-slice (a), the code that ran before (b) and

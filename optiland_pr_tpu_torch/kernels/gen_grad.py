@@ -17,7 +17,13 @@ The module holds
 - ``GenTrace``: the ``torch.autograd.Function`` over K1. Its forward is K1
   (the CUDA kernel on CUDA tensors, the plain version on CPU tensors), its
   backward K2 on the same device. A CUDA tensor never falls back to a plain
-  version.
+  version. On the card, K1's narrow, plain-OPD, unpolarized instance
+  (conic and plane stacks: the Cooke triplet, the double Gauss, the UV
+  lens) runs a fused forward (``csrc/gen_trace_narrow.cuh``); K2's instance
+  of the same kind (``csrc/gen_grad_narrow.cuh``) runs that step for its
+  lost-ray mask, so the rays it differentiates are those K1 kept, and
+  differentiates at the bit-exact forward that every other K2 instance
+  recomputes.
 
 Gradient semantics are those of the JAX custom_vjp: the cotangents of lost
 rays' x, y, z, L, M, N and OPD are zeroed by the transpose of the final NaN

@@ -42,16 +42,18 @@ CUOBJDUMP = str(Path(NVCC).with_name("cuobjdump"))
 SRC = Path("optiland_pr_tpu_torch/kernels/csrc/gen_trace.cu")
 # in the narrow, plain-OPD, unpolarized instance's mangled name
 NARROW = "gen_trace_kernelILi0ELi0ELb0E"
-PIPES = {"MUFU": "mufu", "LDS": "lds", "LDG": "ldg", "STG": "stg",
+PIPES = {"MUFU": "mufu", "LDS": "lds", "STS": "sts", "LDG": "ldg",
+         "STG": "stg", "LDL": "local", "STL": "local", "SHFL": "shfl",
          "BRA": "branch", "BSSY": "branch", "BSYNC": "branch",
          "CALL": "branch", "RET": "branch"}
 
 
-def build(i, src):
-    """The library of source ``src``, the ``i``-th of the command line."""
-    out = Path("_probe/k1")
+def build(i, src, lib="gen_trace", tag="k1"):
+    """The library ``lib`` of source ``src``, the ``i``-th of the command
+    line, built into _probe/<tag>/."""
+    out = Path("_probe") / tag
     out.mkdir(parents=True, exist_ok=True)
-    so = out / f"gen_trace_{i}.so"
+    so = out / f"{lib}_{i}.so"
     r = subprocess.run([NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
                         "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
                         "-Xcompiler", "-fPIC", "-o", str(so), str(src)],
@@ -76,6 +78,7 @@ def opcode_mix(so, name):
             op = m.group(1)
             mix[PIPES.get(op, "fp32" if op.startswith("F")
                           else "other")] += 1
+            mix["all"] += 1
     return dict(sorted(mix.items()))
 
 
@@ -90,9 +93,9 @@ def ptxas_lines(log, name):
     return lines
 
 
-def load(so):
+def load(so, name="gen_trace"):
     lib = ctypes.CDLL(str(so))
-    for fn_name, argtypes, restype in k1._SIGNATURES["gen_trace"]:
+    for fn_name, argtypes, restype in k1._SIGNATURES[name]:
         f = getattr(lib, fn_name)
         f.argtypes, f.restype = argtypes, restype
     return lib

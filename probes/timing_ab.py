@@ -11,10 +11,13 @@ short launch's CUDA-event time carries) and the second pass's part of it
 triplet at (0, 1), 256/256, end to end on the host clock (synced), K3 on
 the DOE spectrometer's rays (1 x 4M), K1 on the Hubble telescope 1 x 2 x
 4M in the plain and Kahan modes (WIDE) and on the zoned concentrator 1 x
-3 x 4M (FREEFORM), and K1's narrow, plain-OPD instance on the Cooke
+3 x 4M (FREEFORM), K1's narrow, plain-OPD instance on the Cooke
 triplet and the double Gauss 3 x 3 x 4M, the UV lens 1 x 3 x 4M and Adam
-(ii)'s Cooke shape, 1 field x 3 wavelengths x 4M (with the card's busy
-time of one call, "_device"). Each checkout builds its own libraries. The runs read
+(ii)'s Cooke shape, 1 field x 3 wavelengths x 4M, and K2's narrow,
+plain-OPD instance (k2_cooke_1x1: the Cooke triplet 1 x 1 at Hy 0.7 x 4M;
+k2_cooke_3x3_1M; k2_adam_ii: Adam (ii)'s shape; k2_apod: the
+Gaussian-apodized Cooke triplet 1 x 1 x 4M; k2_uv: the UV lens 1 x 1 x
+1M), K1's and K2's with the card's busy time of one call ("_device"). Each checkout builds its own libraries. The runs read
 a kernel alone, not after chip_smoke.py's other phases: two checkouts
 whose instances are SASS-identical should read alike here.
 
@@ -113,6 +116,36 @@ for name, build, fields, all_wl in (
                                                      True))
     out[name + "_device"] = device_ms(
         lambda: k1.gen_trace_cuda(g, c, a, px, py, fl, True))[0]
+# K2's narrow, plain-OPD instance at the main paths' shapes: the Cooke
+# triplet 1 x 1 (Hy 0.7) x 4M, 3 x 3 x 1M and Adam (ii)'s 3 wavelengths x 1
+# field x 4M, the Gaussian-apodized Cooke triplet 1 x 1 x 4M, the UV lens
+# 1 x 1 x 1M: (fields, every wavelength or the primary one, apodization,
+# samples)
+for name, build, fields, all_wl, apod, n in (
+        ("k2_cooke_1x1", CookeTriplet, [0.7], False, None, cs.N_MAIN),
+        ("k2_cooke_3x3_1M", CookeTriplet, [0.0, 0.7, 1.0], True, None,
+         cs.N_PARITY),
+        ("k2_adam_ii", CookeTriplet, [0.7], True, None, cs.N_MAIN),
+        ("k2_apod", CookeTriplet, [0.7], False, "gaussian", cs.N_MAIN),
+        ("k2_uv", UVProjectionLens, [1.0], False, None, cs.N_PARITY)):
+    if not wanted(name):
+        continue
+    from optiland_pr_tpu_torch.kernels import gen_grad as k2
+    m, p = build().build(device=dev, dtype=torch.float32)
+    wl = p["wavelengths"] if all_wl else \
+        p["wavelengths"][m.primary_wavelength_idx:][:1]
+    hy = torch.tensor(fields, dtype=torch.float32, device=dev)
+    g, c, a = k1.gen_tables(m, p, wl, torch.zeros_like(hy), hy,
+                            cs.apodization(apod) if apod else None)
+    fl = k1.model_flags(m, p)
+    px_, py_ = px[:n].contiguous(), py[:n].contiguous()
+    cot = torch.randn((8, c.shape[0], g.shape[0], n), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    out[name] = cs.cuda_ms(lambda: k2.gen_trace_bwd_cuda(
+        g, c, a, px_, py_, cot, fl, True))
+    out[name + "_device"] = device_ms(lambda: k2.gen_trace_bwd_cuda(
+        g, c, a, px_, py_, cot, fl, True))[0]
+    del cot
 if wanted("k3_doe_grating_1x4M"):
     m, p = cs.doe_spectrometer().build(device=dev, dtype=torch.float32)
     wl = p["wavelengths"][m.primary_wavelength_idx]

@@ -27,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import optiland_pr_tpu_torch.kernels.gen_grad as tgg
 import optiland_pr_tpu_torch.kernels.gen_trace as tgt
 import optiland_pr_tpu_torch.samples.objectives as tobj
 from _torch_systems import builders as _builders
@@ -328,3 +329,198 @@ def test_chip_smoke_float32_floor():
     again[3].reshape(-1)[::100] *= 1.01
     with pytest.raises(RuntimeError, match="dPx exceeds"):
         compare_grads(again, ref, "1% off", floor)
+
+
+def test_jacobian_through_kernel_dispatch():
+    """The mirror of tests/test_pallas_grad.py::
+    test_jacrev_through_pallas_dispatch: the Jacobian of the masked RMS
+    spot with respect to surface 1's radius through ``GenTrace`` on the CPU
+    (``engine_override("kernel")``: K1's plain version forward, K2's plain
+    version backward), in reverse mode, against the JAX package's XLA-route
+    ``jax.jacrev`` run eagerly, at 256 rays (rtol 5e-3, atol 1e-6).
+    ``torch.autograd.functional.jacobian`` takes it: ``torch.func.jacrev``
+    refuses an ``autograd.Function`` without a ``setup_context``, which
+    ``GenTrace`` (its context saved in ``forward``) does not have."""
+    from optiland_pr_tpu.trace.engine import engine_override as j_override
+    from optiland_pr_tpu.trace.engine import final_rays as j_final_rays
+    px, py = _pupil(256)
+    jm, jp = JCooke().build()
+    jp = _f32(jp)
+
+    def resid_jax(radius):
+        p = jax.tree_util.tree_map(lambda a: a, jp)
+        p["surfaces"][1]["geom"]["radius"] = radius
+        rays = j_final_rays(jm, p, 0.0, 0.0, 0.55, jnp.asarray(px),
+                            jnp.asarray(py))
+        return jnp.stack([_masked_rms(rays.x, rays.y, jnp)])
+
+    with j_override("xla"):
+        Jx = jax.jacrev(resid_jax)(jp["surfaces"][1]["geom"]["radius"])
+
+    tm, tp = tobj.CookeTriplet().build(device="cpu", dtype=F32)
+
+    def resid(radius):
+        p = jax.tree_util.tree_map(lambda a: a, tp)
+        p["surfaces"][1]["geom"]["radius"] = radius
+        with engine_override("kernel"):
+            rays = final_rays(tm, p, 0.0, 0.0, 0.55, torch.tensor(px),
+                              torch.tensor(py))
+        return torch.stack([_masked_rms(rays.x, rays.y, torch)])
+
+    r0 = tp["surfaces"][1]["geom"]["radius"]
+    J = torch.autograd.functional.jacobian(resid, r0)
+    with pytest.raises(RuntimeError, match="setup_context"):
+        torch.func.jacrev(resid)(r0)
+    np.testing.assert_allclose(J.numpy(), np.asarray(Jx), rtol=5e-3,
+                               atol=1e-6)
+
+
+def _tir_grads(n=256):
+    """The TIR singlet 1 x 2 (Hy 0, 1) at ``n`` samples: its tables, the
+    plain K1's lost-ray mask (the CPU stand-in for K1 narrow's) and seeded
+    cotangents."""
+    gen, consts, acoef, flags = _port_tables(tobj.TIRSinglet, [0.0, 1.0])
+    px, py = (torch.tensor(a) for a in _pupil(n, seed=12))
+    lost = torch.isnan(tgt.gen_trace_plain(gen, consts, acoef, px, py,
+                                           flags, True)[0])
+    assert lost.any() and not lost.all()
+    cot = torch.tensor(np.random.default_rng(13).normal(
+        size=(8, 1, 2, n)).astype(np.float32))
+    return (gen, consts, acoef, px, py, flags), lost, cot
+
+
+def _lost_cot(cot, lost):
+    """The TIR set's cotangents in chip_smoke.py: NaN on the lost rays'
+    masked outputs (x, y, z, L, M, N, OPD), no other cotangent on a ray
+    lost in some (w, f). Returns (those cotangents, [n] those rays)."""
+    gone = lost.reshape(-1, lost.shape[-1]).any(0)
+    c = cot.clone()
+    c[..., gone] = 0.0
+    for j in (0, 1, 2, 3, 4, 5, 7):
+        c[j][lost] = torch.nan
+    return c, gone
+
+
+@pytest.mark.parametrize("fault", [None, "nan_read", "lost_dpx",
+                                   "nan_dconsts", "no_lost_ray"])
+def test_chip_smoke_mask_identity(fault):
+    """The mask identity check of K2's narrow instance in chip_smoke.py
+    (``grad_mask_identity``), on the plain version's CPU outputs for the
+    TIR singlet: NaN cotangents on the lost rays' masked outputs and none
+    elsewhere on a lost ray leave every output finite and the lost rays'
+    pupil cotangents exactly 0; a backward that reads one lost ray's NaN,
+    a lost ray's nonzero pupil cotangent, a NaN sum, or a set with no lost
+    ray to hold is caught."""
+    from chip_smoke import grad_mask_identity
+    args, lost, cot = _tir_grads()
+    c_k, gone = _lost_cot(cot, lost)
+    assert torch.isnan(c_k).any() and gone.any()
+    if fault == "nan_read":
+        # a backward whose mask kept one lost ray reads its NaN
+        i = int(torch.nonzero(gone)[0])
+        g = gen_trace_bwd_plain(*args[:5], c_k.nan_to_num(0.0), args[5],
+                                True)
+        g = list(g)
+        g[3] = g[3].clone()
+        g[3][i] = torch.nan
+        g[1] = g[1] + g[3][i]
+    else:
+        g = list(gen_trace_bwd_plain(*args[:5], c_k, args[5], True))
+    if fault == "lost_dpx":
+        g[3] = g[3].clone()
+        g[3][int(torch.nonzero(gone)[0])] = 1e-30
+    elif fault == "nan_dconsts":
+        g[1] = g[1].clone()
+        g[1][0, 0, 0] = torch.nan
+    elif fault == "no_lost_ray":
+        gone = torch.zeros_like(gone)
+    if fault is None:
+        grad_mask_identity(g, gone, "plain")
+        assert torch.any(g[3][~gone] != 0)
+    else:
+        with pytest.raises(RuntimeError, match="check failed"):
+            grad_mask_identity(g, gone, fault)
+
+
+@pytest.mark.parametrize("fault", [None, "dgen", "dconsts", "dPx", "dPy",
+                                   "floor", "parent"])
+def test_chip_smoke_grad_float64_distance(fault):
+    """Contract 3 of K2's narrow instance in chip_smoke.py
+    (``grad_float64_distance``), on the plain version's CPU outputs for the
+    TIR singlet at 256 rays, in float32 and on float64 copies: outputs equal
+    to the float32 plain version's pass; one element moved just beyond
+    twice the float32 plain version's largest distance from float64 is
+    caught; a float32 floor, or another kernel's distance, beyond the
+    element's distance admits it."""
+    from chip_smoke import GRAD_NAMES, grad_float64_distance
+    args, lost, cot = _tir_grads()
+    keep = ~lost.reshape(-1, lost.shape[-1]).any(0)
+    cot[..., ~keep] = 0.0
+    ref = gen_trace_bwd_plain(*args[:5], cot, args[5], True)
+    ref64 = gen_trace_bwd_plain(*(t.double() for t in args[:5]),
+                                cot.double(), args[5], True)
+    if fault is None:
+        dist = grad_float64_distance(ref, ref, ref64, "same", keep)
+        assert set(dist) == {"dgen", "dconsts", "dPx", "dPy"}
+        assert all(a == b > 0.0 and c == 2 * b for a, b, c in dist.values())
+        return
+    label = "dPx" if fault in ("floor", "parent") else fault
+    i = GRAD_NAMES.index(label)
+    k, p, r = ref[i], ref[i].double(), ref64[i]
+    if label in ("dPx", "dPy"):
+        p, r = p[keep], r[keep]
+    dp = float((p - r).abs().max())
+    bad = [t.clone() for t in ref]
+    flat, flat64 = bad[i].reshape(-1), ref64[i].reshape(-1)
+    j = int(torch.nonzero(keep)[0]) if label in ("dPx", "dPy") else 0
+    v = (flat64[j] + 2 * dp).float()
+    while float(v.double() - flat64[j]) <= 2 * dp:
+        v = torch.nextafter(v, torch.tensor(np.inf))
+    flat[j] = v
+    if fault == "floor":
+        floor = [None] * 3 + [torch.zeros_like(k), None]
+        floor[3].reshape(-1)[j] = float(v.double() - flat64[j]) / 2 * 1.001
+        grad_float64_distance(bad, ref, ref64, fault, keep, floor)
+    elif fault == "parent":
+        other = {lb: 0.0 for lb in ("dgen", "dconsts", "dPy")}
+        other["dPx"] = float(v.double() - flat64[j]) * 1.001
+        grad_float64_distance(bad, ref, ref64, fault, keep, parent=other)
+    with pytest.raises(RuntimeError, match="float64 plain version"):
+        grad_float64_distance(bad, ref, ref64, fault, keep)
+
+
+@pytest.mark.parametrize("fault", [None, "masks_differ", "dPx", "dconsts",
+                                   "with_floor"])
+def test_chip_smoke_narrow_grad_check(fault):
+    """chip_smoke.narrow_grad_check, K2 narrow's checks against the plain
+    version and its float64 copy, fed the plain versions' CPU tensors for
+    the TIR singlet (K1's and K2's modules as they run on the CPU): the
+    plain version's own outputs pass, with and without the float32 floor;
+    a ray outside ``keep`` (its masks differ) is held by neither check; a
+    ray's dPx 1% of max|dPx| off, or a sum moved beyond GRAD_TOL, is
+    caught."""
+    from chip_smoke import narrow_grad_check
+    args, lost, cot = _tir_grads()
+    c_k, gone = _lost_cot(cot, lost)
+    c_p = c_k.nan_to_num(0.0)
+    ref = gen_trace_bwd_plain(*args[:5], c_p, args[5], True)
+    keep = torch.ones_like(gone)
+    got = [t.clone() for t in ref]
+    i = int(torch.nonzero(~gone)[0])
+    if fault == "masks_differ":
+        keep[i] = False
+        got[3][i] += 0.5 * float(ref[3].abs().max())
+    elif fault == "dPx":
+        got[3][i] += 0.01 * float(ref[3].abs().max())
+    elif fault == "dconsts":
+        got[1].reshape(-1)[int(ref[1].abs().argmax())] *= 1.01
+    run = (lambda: narrow_grad_check(tgt, tgg, *args[:5], c_p, args[5], got,
+                                     ref, keep, str(fault),
+                                     floor=fault == "with_floor"))
+    if fault in ("dPx", "dconsts"):
+        with pytest.raises(RuntimeError, match="exceeds"):
+            run()
+    else:
+        err, dist = run()
+        assert set(dist) == {"dgen", "dconsts", "dPx", "dPy"}
+        assert err == 0.0

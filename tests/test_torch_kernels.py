@@ -390,3 +390,73 @@ def test_chip_smoke_float64_check(fault):
     floor.reshape(8, -1)[j, i] = float(v.double() - v64) / 2 * (1 + 1e-6)
     dist = float64_distance(bad, out, out64, fault, floor)
     assert dist[fault][2] > dist[fault][1]
+
+
+def _tir_plain(n=256, seed=14):
+    model, params = tobj.TIRSinglet().build(device="cpu", dtype=F32)
+    hy = torch.tensor([0.0, 1.0])
+    gen, consts, acoef = tgt.gen_tables(model, params, params["wavelengths"],
+                                        torch.zeros_like(hy), hy)
+    px, py = (torch.tensor(a) for a in _pupil(n, seed))
+    return gen, consts, acoef, px, py, tgt.model_flags(model, params)
+
+
+@pytest.mark.parametrize("fault", [None, "kept", "lost"])
+def test_chip_smoke_grad_masks(fault):
+    """The lost-ray masks of K2's narrow instance in chip_smoke.py
+    (``grad_masks``), with K1's plain version on the CPU in the place of K1
+    narrow: the same masks pass with no ray differing and every ray held
+    per ray, lost ones included; one ray that K1 keeps and the plain
+    version loses, or the other way round, exceeds the allowance of 1e-6
+    of the rays (none at 512 ray-planes)."""
+    from types import SimpleNamespace
+
+    from chip_smoke import grad_masks
+    args = _tir_plain()
+    out = tgt.gen_trace_plain(*args, True)
+    lost = torch.isnan(out[0])
+    assert lost[0, 1].any() and not lost[0, 1].all()
+    bad = out.clone()
+    if fault == "kept":
+        i = int(torch.nonzero(lost[0, 1])[0])
+        bad[:, 0, 1, i] = 0.5                  # K1 keeps a lost ray
+    elif fault == "lost":
+        i = int(torch.nonzero(~lost[0, 1])[0])
+        bad[:6, 0, 1, i] = torch.nan           # K1 loses a kept ray
+    stub = SimpleNamespace(gen_trace_cuda=lambda *a: bad,
+                           gen_trace_plain=tgt.gen_trace_plain)
+    if fault is None:
+        lost_k, keep, n = grad_masks(stub, *args, "same")
+        assert n == 0 and torch.equal(lost_k, lost)
+        assert bool(keep.all())
+    else:
+        with pytest.raises(RuntimeError, match="masks differ"):
+            grad_masks(stub, *args, fault)
+
+
+@pytest.mark.parametrize("on_kept", [False, True])
+def test_chip_smoke_grad_comparison_keep(on_kept):
+    """``compare_grads(keep=)``: K2's narrow instance is held per ray only
+    on the rays whose lost-ray masks (K1 narrow's, its own) and the plain
+    version's agree. A fault
+    of 1% of max|dPx| on a ray outside ``keep`` passes; on a ray inside it
+    is caught."""
+    from chip_smoke import compare_grads
+    from optiland_pr_tpu_torch.kernels.gen_grad import gen_trace_bwd_plain
+    args = _tir_plain()
+    n = args[3].shape[0]
+    cot = torch.tensor(np.random.default_rng(15).normal(
+        size=(8, 1, 2, n)).astype(np.float32))
+    ref = gen_trace_bwd_plain(*args[:5], cot, args[5], True)
+    keep = torch.ones(n, dtype=torch.bool)
+    keep[::7] = False
+    i = int(torch.nonzero(keep if on_kept else ~keep)[0])
+    bad = [t.clone() for t in ref]
+    bad[3][i] += 0.01 * float(ref[3].abs().max())
+    if on_kept:
+        with pytest.raises(RuntimeError, match="dPx exceeds"):
+            compare_grads(bad, ref, "kept", keep=keep)
+    else:
+        compare_grads(bad, ref, "not kept", keep=keep)
+        with pytest.raises(RuntimeError, match="dPx exceeds"):
+            compare_grads(bad, ref, "every ray")

@@ -165,6 +165,11 @@
 #ifndef GRAD_POL
 #define GRAD_POL 0
 #endif
+// 1: this library's WIDE, plain-OPD, polarized instances are
+// gen_grad_pol_wide.cuh's (gen_grad_pol.cu)
+#ifndef POL_WIDE_FUSED
+#define POL_WIDE_FUSED 0
+#endif
 
 #define GBLOCK 256
 #define NWARP (GBLOCK / 32)
@@ -2186,6 +2191,12 @@ gen_grad_kernel(const float* __restrict__ gen, const float* __restrict__ consts,
 #if NARROW_FUSED
 #include "gen_grad_narrow.cuh"
 #endif
+// The WIDE, plain-OPD, polarized instances (the polarized double Gauss's,
+// the tilted coated singlet's) in the plain polarized library: the design
+// of gen_grad_pol_wide.cuh, whose forward is K1 (e)'s.
+#if POL_WIDE_FUSED
+#include "gen_grad_pol_wide.cuh"
+#endif
 
 // gen columns 0-15 -> slot after the surfaces' (-1: no cotangent)
 __device__ __forceinline__ int gen_slot(int col) {
@@ -2302,6 +2313,9 @@ static int launch_bucket(dim3 grid, cudaStream_t stream, const float* gen,
     size_t shmem = (size_t)NWARP * (g.qoff[S] + NGEN) * sizeof(float);
 #if NARROW_FUSED
     if constexpr (VAR == VAR_NARROW) shmem = narrow_shmem(S);
+#endif
+#if POL_WIDE_FUSED
+    if constexpr (VAR == VAR_WIDE) shmem = polw_shmem(g, S);
 #endif
     if (shmem > 48 * 1024) {
         const int err = (int)cudaFuncSetAttribute(

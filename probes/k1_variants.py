@@ -17,19 +17,17 @@ own directory (a copy of csrc/, or _parent_tree's); name one source twice,
 in A B B A order, to read the spread between builds. A parent's source
 whose narrow instance is bit-equal passes the contract too. The libraries
 are built into _probe/k1/."""
-import collections
-import ctypes
 import json
-import re
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 sys.path.insert(0, ".")
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from variant_build import build, load, opcode_mix, ptxas_lines  # noqa: E402
 from optiland_pr_tpu_torch.core.distributions import \
     generate_distribution  # noqa: E402
 from optiland_pr_tpu_torch.kernels import gen_trace as k1  # noqa: E402
@@ -37,68 +35,9 @@ from optiland_pr_tpu_torch.samples import (CookeTriplet,  # noqa: E402
                                            DoubleGauss, TIRSinglet,
                                            UVProjectionLens)
 
-NVCC = k1._find_nvcc()
-CUOBJDUMP = str(Path(NVCC).with_name("cuobjdump"))
 SRC = Path("optiland_pr_tpu_torch/kernels/csrc/gen_trace.cu")
 # in the narrow, plain-OPD, unpolarized instance's mangled name
 NARROW = "gen_trace_kernelILi0ELi0ELb0E"
-PIPES = {"MUFU": "mufu", "LDS": "lds", "STS": "sts", "LDG": "ldg",
-         "STG": "stg", "LDL": "local", "STL": "local", "SHFL": "shfl",
-         "BRA": "branch", "BSSY": "branch", "BSYNC": "branch",
-         "CALL": "branch", "RET": "branch"}
-
-
-def build(i, src, lib="gen_trace", tag="k1"):
-    """The library ``lib`` of source ``src``, the ``i``-th of the command
-    line, built into _probe/<tag>/."""
-    out = Path("_probe") / tag
-    out.mkdir(parents=True, exist_ok=True)
-    so = out / f"{lib}_{i}.so"
-    r = subprocess.run([NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                        "-Xcompiler", "-fPIC", "-o", str(so), str(src)],
-                       capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    return so, r.stderr
-
-
-def opcode_mix(so, name):
-    """The SASS opcodes of kernel ``name`` in ``so``, counted by pipe."""
-    txt = subprocess.run([CUOBJDUMP, "-sass", str(so)], capture_output=True,
-                         text=True, check=True).stdout
-    mix, cur = collections.Counter(), None
-    for line in txt.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1)
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
-                      line)
-        if cur and name in cur and m:
-            op = m.group(1)
-            mix[PIPES.get(op, "fp32" if op.startswith("F")
-                          else "other")] += 1
-            mix["all"] += 1
-    return dict(sorted(mix.items()))
-
-
-def ptxas_lines(log, name):
-    """ptxas's lines about kernel ``name``."""
-    lines, on = [], False
-    for line in log.splitlines():
-        if "Compiling entry" in line or "Function properties" in line:
-            on = name in line
-        if on and ("Used" in line or "spill" in line):
-            lines.append(line.strip())
-    return lines
-
-
-def load(so, name="gen_trace"):
-    lib = ctypes.CDLL(str(so))
-    for fn_name, argtypes, restype in k1._SIGNATURES[name]:
-        f = getattr(lib, fn_name)
-        f.argtypes, f.restype = argtypes, restype
-    return lib
 
 
 def main(variants):
@@ -106,7 +45,8 @@ def main(variants):
     f32 = torch.float32
     print(f"[k1] {cs.card_line()}", flush=True)
     with ThreadPoolExecutor(len(variants)) as pool:
-        built = list(pool.map(build, range(len(variants)), variants))
+        built = list(pool.map(partial(build, lib="gen_trace", tag="k1"),
+                              range(len(variants)), variants))
 
     def tables(lens, fields, all_wl, apod=None):
         m, p = lens.build(device=dev, dtype=f32)
@@ -139,7 +79,7 @@ def main(variants):
         for line in ptxas_lines(log, NARROW):
             print(f"[k1] {tag} ptxas: {line}")
         print(f"[k1] {tag} SASS by pipe: {opcode_mix(so, NARROW)}")
-        lib = load(so)
+        lib = load(so, "gen_trace")
         k1.build_kernel = lambda name, lib=lib: lib
         for name, (g, c, a, fl), tol in parity:
             try:

@@ -9,7 +9,10 @@ K2 narrow checks: GRAD_TOL on the rays whose masks agree, two launches
 bit-identical, the mask identity on the TIR singlet at 1M and 4M, the
 distance from the float64 plain version beside the float32 plain
 version's and, for the builds after a _parent_tree one, beside the
-parent's). The times of the same instance at the main paths' shapes are
+parent's), and chip_smoke.py's margin sets (``narrow_margin_check``: the
+rays at the lost-ray margins of the TIR singlet and the UV lens, the mask
+identity both ways, the rays that only K1 narrow keeps against the float64
+plain version at the points that match K1 narrow's outputs). The times of the same instance at the main paths' shapes are
 ``probes/timing_ab.py``'s k2_ rows.
 
     python3 probes/k2_variants.py [gen_grad.cu ...]
@@ -28,7 +31,7 @@ sys.path.insert(0, ".")
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from k1_variants import build, load, opcode_mix, ptxas_lines  # noqa: E402
+from variant_build import build, load, opcode_mix, ptxas_lines  # noqa: E402
 from optiland_pr_tpu_torch.core.distributions import \
     generate_distribution  # noqa: E402
 from optiland_pr_tpu_torch.kernels import gen_grad as k2  # noqa: E402
@@ -87,6 +90,18 @@ def main(variants):
         "cooke_gaussian_1x3": (tables(CookeTriplet(), three, False,
                                       cs.apodization("gaussian")), px1, py1,
                                False)}
+    # the margin sets of chip_smoke.py: (tables, pupil, field per ray)
+    margins = {}
+    for name, key, pxv, p_max, extra in (
+            ("tir_singlet_margins_2x1", "tir_singlet_2x1",
+             [0.1 * j for j in range(8)], 1.0, (px4, py4)),
+            ("uv_lens_margins_1x3", "uv_lens_1x3", [0.0, 0.3, 0.6], 3.0,
+             None)):
+        px_, py_, fld, n_m, n_out = cs.margin_set(k1, *sets[key], pxv, p_max,
+                                                  extra)
+        margins[name] = (sets[key], px_, py_, fld, pxv, p_max)
+        print(f"[k2] {name}: {n_m} margins, {px_.shape[0]} rays, {n_out} "
+              f"left out", flush=True)
     refs = {}
     for name, ((g, c, a, fl), px, py, _) in parity.items():
         shape = (8, c.shape[0], g.shape[0], px.shape[0])
@@ -137,6 +152,14 @@ def main(variants):
                       + ", ".join(f"{k} {x:.3g} / {y:.3g} / {z:.3g}"
                                   for k, (x, y, z) in dists[name].items()),
                       flush=True)
+            except RuntimeError as e:
+                print(f"[k2] {tag} {name}: FAILED {e}", flush=True)
+            torch.cuda.empty_cache()
+        for seed, (name, ((g, c, a, fl), px, py, fld, pxv, p_max)) in \
+                enumerate(margins.items(), start=2):
+            try:
+                cs.narrow_margin_check(k1, k2, g, c, a, fl, px, py, fld, name,
+                                       seed, pxv, p_max)
             except RuntimeError as e:
                 print(f"[k2] {tag} {name}: FAILED {e}", flush=True)
             torch.cuda.empty_cache()

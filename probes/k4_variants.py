@@ -15,70 +15,21 @@ from the repository's root on a machine with one GPU (default: the
 checkout's csrc/huygens.cu). Each source must export the checkout's
 huygens_* functions; name one source twice, in A B B A order, to read the
 spread between builds. The libraries are built into _probe/k4/."""
-import collections
-import ctypes
 import json
-import re
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 sys.path.insert(0, ".")
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from optiland_pr_tpu_torch.kernels import gen_trace as k1  # noqa: E402
+from variant_build import build, load, opcode_mixes  # noqa: E402
 from optiland_pr_tpu_torch.kernels import huygens as k4  # noqa: E402
 
-NVCC = k1._find_nvcc()
-CUOBJDUMP = str(Path(NVCC).with_name("cuobjdump"))
 SRC = Path("optiland_pr_tpu_torch/kernels/csrc/huygens.cu")
-PIPES = {"MUFU": "mufu", "F2F": "conv", "F2I": "conv", "I2F": "conv",
-         "FRND": "conv", "DFMA": "fp64", "DADD": "fp64", "DMUL": "fp64",
-         "DSETP": "fp64", "LDS": "lds", "LDG": "ldg", "BRA": "branch",
-         "BSSY": "branch", "BSYNC": "branch"}
-
-
-def build(i, src):
-    """The library of source ``src``, the ``i``-th of the command line."""
-    out = Path("_probe/k4")
-    out.mkdir(parents=True, exist_ok=True)
-    so = out / f"huygens_{i}_{Path(src).stem}.so"
-    r = subprocess.run([NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                        "-Xcompiler", "-fPIC", "-o", str(so), str(src)],
-                       capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    return so, r.stderr
-
-
-def opcode_mix(so):
-    txt = subprocess.run([CUOBJDUMP, "-sass", str(so)], capture_output=True,
-                         text=True, check=True).stdout
-    mix, cur = {}, None
-    for line in txt.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1)
-            mix[cur] = collections.Counter()
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
-                      line)
-        if cur and m:
-            op = m.group(1)
-            mix[cur][PIPES.get(op, "fp32" if op.startswith("F")
-                               else "other")] += 1
-    return mix
-
-
-def load(so):
-    lib = ctypes.CDLL(str(so))
-    for fn_name, argtypes, restype in k1._SIGNATURES["huygens"]:
-        f = getattr(lib, fn_name)
-        f.argtypes, f.restype = argtypes, restype
-    return lib
 
 
 def main(variants):
@@ -86,7 +37,8 @@ def main(variants):
     f32 = torch.float32
     print(f"[k4] {cs.card_line()}", flush=True)
     with ThreadPoolExecutor(len(variants)) as pool:
-        built = list(pool.map(build, range(len(variants)), variants))
+        built = list(pool.map(partial(build, lib="huygens", tag="k4"),
+                              range(len(variants)), variants))
     # the inputs: (name, form, pupil, image, k)
     geo = cs.huygens_geometry(cs.HUYGENS_P256, cs.HUYGENS_I256)
     sets = [("sum_jax_51040x65536", "sum", torch.stack(
@@ -116,9 +68,9 @@ def main(variants):
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 print(f"[k4] {tag} ptxas: {line.strip()}")
-        for fn_name, mix in opcode_mix(so).items():
-            print(f"[k4] {tag} {fn_name}: {dict(sorted(mix.items()))}")
-        k4.build_kernel = lambda name, lib=load(so): lib
+        for fn_name, mix in opcode_mixes(so).items():
+            print(f"[k4] {tag} {fn_name}: {mix}")
+        k4.build_kernel = lambda name, lib=load(so, "huygens"): lib
         k4._OCCUPANCY.clear()
         for name, form, pupil, image, kk in sets:
             fn = k4.huygens_sum_cuda if form == "sum" else k4.fresnel_sum_cuda

@@ -17,7 +17,11 @@ triplet and the double Gauss 3 x 3 x 4M, the UV lens 1 x 3 x 4M and Adam
 plain-OPD instance (k2_cooke_1x1: the Cooke triplet 1 x 1 at Hy 0.7 x 4M;
 k2_cooke_3x3_1M; k2_adam_ii: Adam (ii)'s shape; k2_apod: the
 Gaussian-apodized Cooke triplet 1 x 1 x 4M; k2_uv: the UV lens 1 x 1 x
-1M), K1's and K2's with the card's busy time of one call ("_device"). Each checkout builds its own libraries. The runs read
+1M), K2's WIDE, plain-OPD, polarized instance (k2e_double_gauss_1x1: the
+polarized double Gauss 1 x 1 at Hy 0.7 x 4M; k2e_tilted_circular_1x2:
+the tilted coated singlet's circular launch 1 x 2 x 4M), K1's and K2's
+with the card's busy time of one call ("_device"). Each checkout builds
+its own libraries. The runs read
 a kernel alone, not after chip_smoke.py's other phases: two checkouts
 whose instances are SASS-identical should read alike here.
 
@@ -62,6 +66,13 @@ def device_ms(fn, n=5):
             return busy / n, sum(t for name, t, _ in top
                                  if "huygens_finish" in name) / n
     return None, None
+
+
+def cs_circular():
+    import math
+    from optiland_pr_tpu_torch.core.polarization import PolarizationState
+    return PolarizationState(is_polarized=True, Ex=1.0, Ey=1.0, phase_x=0.0,
+                             phase_y=math.pi / 2)
 
 
 def time_k4(key, fn, reps):
@@ -145,6 +156,30 @@ for name, build, fields, all_wl, apod, n in (
         g, c, a, px_, py_, cot, fl, True))
     out[name + "_device"] = device_ms(lambda: k2.gen_trace_bwd_cuda(
         g, c, a, px_, py_, cot, fl, True))[0]
+    del cot
+# K2's WIDE, plain-OPD, polarized instance: the polarized double Gauss 1 x
+# 1 (Hy 0.7) x 4M (the main paths' shape) and the tilted coated singlet's
+# circular launch (two vectors) 1 x 2 x 4M
+for name, lens_fn, fields in (
+        ("k2e_double_gauss_1x1", cs.polarized_double_gauss, [0.7]),
+        ("k2e_tilted_circular_1x2",
+         lambda: cs.fresnel_coated(cs.tilted_coated_singlet(), cs_circular()),
+         [0.0, 1.0])):
+    if not wanted(name):
+        continue
+    from optiland_pr_tpu_torch.kernels import gen_grad as k2
+    m, p = lens_fn().build(device=dev, dtype=torch.float32)
+    wl = p["wavelengths"][m.primary_wavelength_idx:][:1]
+    hy = torch.tensor(fields, dtype=torch.float32, device=dev)
+    g, c, a = k1.gen_tables(m, p, wl, torch.zeros_like(hy), hy)
+    fl = k1.model_flags(m, p)
+    pol = k1.polar_launch(m.polarization)
+    cot = torch.randn((8, c.shape[0], g.shape[0], cs.N_MAIN), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    out[name] = cs.cuda_ms(lambda: k2.gen_trace_bwd_cuda(
+        g, c, a, px, py, cot, fl, True, polar=pol))
+    out[name + "_device"] = device_ms(lambda: k2.gen_trace_bwd_cuda(
+        g, c, a, px, py, cot, fl, True, polar=pol))[0]
     del cot
 if wanted("k3_doe_grating_1x4M"):
     m, p = cs.doe_spectrometer().build(device=dev, dtype=torch.float32)

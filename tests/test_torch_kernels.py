@@ -434,6 +434,182 @@ def test_chip_smoke_grad_masks(fault):
             grad_masks(stub, *args, fault)
 
 
+def test_chip_smoke_margin_search():
+    """``margin_pupils`` in chip_smoke.py, with K1's plain version on the
+    CPU in the place of K1 narrow: on the TIR singlet it finds, for each of
+    three Px, the float32 threshold of Py where total reflection at Hy 1
+    begins (near Py 0.62 on axis), two adjacent float32 values of which one
+    keeps the ray and the other loses it, at the middle of each window of
+    2 MARGIN_ULPS values; the plain version's mask standing in for K1
+    narrow's, no ray of the windows differs between the two."""
+    from types import SimpleNamespace
+
+    from chip_smoke import MARGIN_ULPS, grad_masks, margin_pupils
+    gen, consts, acoef, _, _, flags = _tir_plain()
+
+    def lost(px, py):
+        return torch.isnan(tgt.gen_trace_plain(
+            gen, consts, acoef, torch.from_numpy(px), torch.from_numpy(py),
+            flags, True)[0]).numpy()
+    px, py, f, n = margin_pupils(lost, 2, [0.0, 0.3, 0.6], 1.0)
+    on_tir = f.reshape(n, -1)[:, 0] == 1
+    assert n == len(f) // (2 * MARGIN_ULPS) and int(on_tir.sum()) == 3
+    mask = lost(px, py)[0, f, np.arange(len(f))].reshape(n, -1)
+    below, above = mask[:, MARGIN_ULPS - 1], mask[:, MARGIN_ULPS]
+    assert (below != above).all()
+    pyw = py.reshape(n, -1)
+    assert (np.nextafter(pyw[:, MARGIN_ULPS - 1], np.float32(np.inf))
+            == pyw[:, MARGIN_ULPS]).all()
+    first = pyw[on_tir][0, MARGIN_ULPS]        # Px 0, the first lost Py
+    assert 0.6 < first < 0.65 and mask[on_tir][0, MARGIN_ULPS]
+    stub = SimpleNamespace(gen_trace_cuda=tgt.gen_trace_plain,
+                           gen_trace_plain=tgt.gen_trace_plain)
+    _, keep, n_differ = grad_masks(stub, gen, consts, acoef,
+                                   torch.from_numpy(px),
+                                   torch.from_numpy(py), flags, "margins")
+    assert n_differ == 0 and bool(keep.all())
+
+
+@pytest.mark.parametrize("fault", [None, "kept_zero", "kept_nan",
+                                   "none_kept_and_lost"])
+def test_chip_smoke_mask_identity_converse(fault):
+    """The converse of ``grad_mask_identity`` in chip_smoke.py (``kept``),
+    on the plain version's CPU outputs for the TIR singlet with
+    cotangents on Hy 1 only: every ray that K1 keeps there gets finite
+    pupil cotangents, not both 0, and lost rays 0. A kept ray whose pupil
+    cotangents are 0 (what a K2 that took the bit-exact forward's mask gave
+    a ray that K1 narrow keeps and that forward loses) or NaN is caught, and
+    so is a set with no kept ray ("holds nothing")."""
+    from chip_smoke import grad_mask_identity
+    from optiland_pr_tpu_torch.kernels.gen_grad import gen_trace_bwd_plain
+    args = _tir_plain()
+    n = args[3].shape[0]
+    lost = torch.isnan(tgt.gen_trace_plain(*args, True)[0])
+    cot = torch.tensor(np.random.default_rng(16).normal(
+        size=(8, 1, 2, n)).astype(np.float32))
+    cot[:, :, 0] = 0.0
+    cot[6] = 0.0
+    for j in (0, 1, 2, 3, 4, 5, 7):
+        cot[j][lost] = torch.nan
+    g = list(gen_trace_bwd_plain(*args[:5], cot.nan_to_num(0.0), args[5],
+                                 True))
+    gone = lost[0, 1]
+    kept = ~gone
+    i = int(torch.nonzero(kept)[0])
+    if fault == "kept_zero":
+        g[3], g[4] = g[3].clone(), g[4].clone()
+        g[3][i] = g[4][i] = 0.0
+    elif fault == "kept_nan":
+        g[3] = g[3].clone()
+        g[3][i] = torch.nan
+    elif fault == "none_kept_and_lost":
+        kept = torch.zeros_like(kept)
+    if fault is None:
+        grad_mask_identity(g, gone, "plain", kept)
+    else:
+        with pytest.raises(RuntimeError, match="check failed"):
+            grad_mask_identity(g, gone, fault, kept)
+
+
+def _ulps(x, n, to):
+    """``x`` moved by ``n`` float32 ulps toward ``to``."""
+    for _ in range(n):
+        x = torch.nextafter(x, torch.full_like(x, to))
+    return x
+
+
+def _stand_in_narrow(fault=None):
+    """Stand-ins for K1 and K2 narrow in ``narrow_margin_check``, on the
+    CPU. K1: the float32 plain version's outputs, and on the rays that it
+    loses and the plain version on float64 copies keeps 3 float32 ulps of
+    Py nearer the axis, those float64 outputs rounded to float32 (at the
+    TIR singlet's margins the float32 and float64 masks agree on every
+    float32 Py, so K1 narrow's own rounding stands in as a shift). K2: the
+    float32 plain version's pupil cotangents and sums on the first, and
+    the float64 version's at K1's forward on the second, as K2 narrow
+    differentiates a ray that K1 narrow keeps and the bit-exact forward
+    loses at K1 narrow's own. ``fault`` plants an error on the second:
+    their dPx and dPy negated ("sign") or tripled ("scale"), the rays
+    differentiated 8 more ulps away ("tape": a forward other than K1's),
+    their share of the sums negated ("sums")."""
+    from types import SimpleNamespace
+
+    from optiland_pr_tpu_torch.kernels.gen_grad import gen_trace_bwd_plain
+
+    def split(gen, consts, acoef, px, py, flags, final_prop):
+        o32 = tgt.gen_trace_plain(gen, consts, acoef, px, py, flags,
+                                  final_prop)
+        o64 = tgt.gen_trace_plain(*(t.double() for t in (
+            gen, consts, acoef, px, _ulps(py, 3, 0.0))), flags, final_prop)
+        return o32, o64, torch.isnan(o32[0]) & ~torch.isnan(o64[0])
+
+    def k1(gen, consts, acoef, px, py, flags, final_prop):
+        o32, o64, own = split(gen, consts, acoef, px, py, flags, final_prop)
+        return torch.where(own, o64.float(), o32)
+
+    def k2(gen, consts, acoef, px, py, cot, flags, final_prop):
+        own = split(gen, consts, acoef, px, py, flags, final_prop)[2]
+        c = cot.nan_to_num(0.0)
+        own = (own & (c != 0).any(0)).any(0).any(0)        # [n]
+        rest = gen_trace_bwd_plain(gen, consts, acoef, px, py, c * ~own,
+                                   flags, final_prop)
+        py_own = _ulps(py, 3 + (8 if fault == "tape" else 0), 0.0)
+        g = gen_trace_bwd_plain(*(t.double() for t in (gen, consts, acoef,
+                                                        px, py_own)),
+                                (c * own).double(), flags, final_prop)
+        g = [t.float() for t in g]
+        if fault == "sign":
+            g[3], g[4] = -g[3], -g[4]
+        elif fault == "scale":
+            g[3], g[4] = 3 * g[3], 3 * g[4]
+        elif fault == "sums":
+            g[:3] = [-t for t in g[:3]]
+        return tuple(a + b for a, b in zip(rest, g))
+
+    return (SimpleNamespace(gen_trace_cuda=k1,
+                            gen_trace_plain=tgt.gen_trace_plain),
+            SimpleNamespace(gen_trace_bwd_cuda=k2,
+                            gen_trace_bwd_plain=gen_trace_bwd_plain))
+
+
+@pytest.fixture(scope="module")
+def tir_margin_set():
+    """The TIR singlet's margin set (``margin_set`` in chip_smoke.py) with
+    the stand-in K1 of ``_stand_in_narrow``."""
+    from chip_smoke import margin_set
+    gen, consts, acoef, _, _, flags = _tir_plain()
+    k1, _ = _stand_in_narrow()
+    pxv = [0.0, 0.3, 0.6]
+    px, py, f, _, _ = margin_set(k1, gen, consts, acoef, flags, pxv, 1.0)
+    return gen, consts, acoef, flags, px, py, f, pxv
+
+
+@pytest.mark.parametrize("fault", [None, "sign", "scale", "tape", "sums"])
+def test_chip_smoke_own_ray_check(fault, tir_margin_set):
+    """``narrow_margin_check`` in chip_smoke.py on the TIR singlet's margin
+    set, with ``_stand_in_narrow``'s K1 and K2 (the float32 plain version,
+    and the float64 one on the rays that only it keeps): the rays that K1
+    keeps and the float32 plain version loses are held against the float64
+    version at the points that match K1's outputs (``own_ray_check``,
+    within twice ``margin_floor``); a correct K2 passes, and each planted
+    fault on those rays is caught: their pupil cotangents with the sign
+    flipped or tripled, a forward 8 ulps of Py away, their share of the
+    sums negated."""
+    from chip_smoke import narrow_margin_check
+    gen, consts, acoef, flags, px, py, f, pxv = tir_margin_set
+    k1, k2 = _stand_in_narrow(fault)
+    args = (k1, k2, gen, consts, acoef, flags, px, py, f, fault, 2, pxv, 1.0)
+    if fault is None:
+        out = narrow_margin_check(*args)
+        assert out["kept_lost_by_plain"] > 0
+        assert out["own_matched_worst"] <= 2 * out["own_floor"]
+    else:
+        match = ("of the rays that K1 narrow keeps" if fault == "sums" else
+                 "pupil cotangents of a ray that K1 narrow keeps")
+        with pytest.raises(RuntimeError, match=match):
+            narrow_margin_check(*args)
+
+
 @pytest.mark.parametrize("on_kept", [False, True])
 def test_chip_smoke_grad_comparison_keep(on_kept):
     """``compare_grads(keep=)``: K2's narrow instance is held per ray only
